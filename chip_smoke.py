@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (drsa_audio_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit, builds both CUDA kernels
+   (csrc/*.cu, one nvcc each, in parallel).
+2. Serves three requests of 32 clips, one class each, through
+   ExplainerService on the GTZAN-3s model at full width (seeded random
+   weights and U), with every launch counter set to 0 just before and read
+   just after: each request must launch chain_block 3 times and first_layer
+   once. The heatmaps must be finite, the standard map must be the sum of
+   the subspace maps, and one request must agree with the plain path
+   (fused=False).
+3. Holds the card against the CPU path on four clips: the log-mel, then the
+   heatmaps and logits computed from the same mels.
+4. Records the inputs of the four kernel launches of one 256-clip request,
+   holds each kernel against its plain PyTorch version on them (TF32 off),
+   and times both with CUDA events beside the kernel's lower bound.
+5. Times one 256-clip request end to end, then the service's own stages of
+   the same request (upload, front-end, forward + upper LRP, lower segment,
+   readback, sort; medians of STAGE_REPS), and traces one request with
+   torch.profiler for the device time of each kernel and the idle share.
+
+Tolerance for every comparison: rtol 1e-4, atol 1e-5 * max|plain| (the JAX
+package's own fused-vs-tiled bound). Prints JSON lines; the line before the
+last is nvidia-smi's name and power limit, the last is the status line.
+Exits non-zero, printing no result, where CUDA is unavailable.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+B_SERVE, B_KERNEL, K = 32, 256, 4
+STAGE_REPS = 5
+PEAK_FLOPS = 67e12        # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+TPU_KERNELS = {
+    "chain_block": "drsa_audio_tpu/xai/lrp/pallas_chain.py:624",
+    "first_layer": "drsa_audio_tpu/xai/lrp/pallas_chain.py:709",
+}
+SOURCES = {
+    "chain_block": "drsa_audio_tpu_torch/csrc/chain_block.cu",
+    "first_layer": "drsa_audio_tpu_torch/csrc/first_layer.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check_close(name: str, got, want) -> float:
+    err = (got - want).abs().max().item()
+    atol = 1e-5 * want.abs().max().item()
+    bad = ((got - want).abs() > atol + 1e-4 * want.abs()).sum().item()
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {want.numel()} elements outside "
+                             f"rtol 1e-4, atol {atol:.3g} (max abs err {err:.3g})")
+    return err
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def chain_block_work(R, xs, convs, apre=None, pool=None):
+    """Flops and bytes one chain_block call needs: per conv the two forward
+    convs of the clone-shared prep and one transposed conv per clone (the
+    second transposed conv of the gamma rule is identically zero under the
+    relu gate, see csrc/chain_block.cu); each input read once, the output
+    written once."""
+    b, k = R.shape[:2]
+    flops, nbytes = 0.0, 4.0 * R.numel()
+    for x, cv in zip(xs, convs):
+        H, W = x.shape[1:3]
+        flops += 2.0 * (2 + k) * b * H * W * cv.ci * cv.co * 9
+        nbytes += 4.0 * (x.numel() + cv.w_prep.numel() + cv.w_apply.numel())
+    out = b * k * xs[-1].shape[1] * xs[-1].shape[2] * convs[-1].ci
+    if apre is not None:
+        nbytes += 4.0 * apre.numel()
+        out *= pool[0] * pool[1]
+    return flops, nbytes + 4.0 * out
+
+
+def first_layer_work(R, a1, fl):
+    b, k = R.shape[:2]
+    H, W, C = a1.shape[1:]
+    flops = 2.0 * b * k * H * W * C * 9
+    nbytes = 4.0 * (R.numel() + a1.numel() + fl.z0.numel() + fl.taps.numel() + b * k * H * W)
+    return flops, nbytes
+
+
+def staged_request(svc, wavs, class_name: str) -> dict:
+    """One request through ``svc.explain`` with its own stages timed. The
+    functions the service calls are wrapped for the call: CUDA events mark
+    where each device stage ends, so the device stages are contiguous spans
+    of the device's timeline; the device is synchronised before the readback,
+    and the host clock times the readback and the sort. ``other_host`` is
+    what the request took beyond all of these."""
+    import torch
+    from drsa_audio_tpu_torch import serving
+    from drsa_audio_tpu_torch.xai import explain as explain_mod
+
+    events, host = {}, {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    def device_stage(mod, attr, before=None, after=None):
+        fn = getattr(mod, attr)
+
+        def run(*args, **kwargs):
+            if before:
+                mark(before)
+            out = fn(*args, **kwargs)
+            if after:
+                mark(after)
+            return out
+        return mod, attr, fn, run
+
+    def host_stage(mod, attr, name):
+        fn = getattr(mod, attr)
+
+        def run(*args, **kwargs):
+            if name == "readback":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return mod, attr, fn, run
+
+    patches = [device_stage(serving, "peak_normalize", before="uploaded"),
+               device_stage(serving, "logmel", after="frontend"),
+               device_stage(explain_mod, "explain_forward_upper", after="forward_upper"),
+               device_stage(explain_mod, "explain_lower", after="lower"),
+               host_stage(svc, "_finalize", "readback"),
+               host_stage(serving, "sort_subspaces", "sort")]
+    for mod, attr, _, run in patches:
+        setattr(mod, attr, run)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        svc.explain(wavs, class_name)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, fn, _ in patches:
+            setattr(mod, attr, fn)
+        del svc._finalize                    # back to the class's method
+    order = ["start", "uploaded", "frontend", "forward_upper", "lower"]
+    out = {b: events[a].elapsed_time(events[b]) for a, b in zip(order, order[1:])}
+    out["readback"] = host["readback"] - host["sort"]   # _finalize less the sort
+    out["sort"] = host["sort"]
+    out["other_host"] = total - sum(out.values())
+    out["request"] = total
+    return out
+
+
+def traced_request(svc, wavs, class_name: str) -> dict:
+    """One request under torch.profiler: the device time of each kernel or
+    copy (events on the device only, so no host op's share of them is
+    counted twice), the ten largest, and the device's busy and idle share of
+    the request's host-clock time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.explain(wavs, class_name)
+        total = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        rows.append({"name": e.key[:80], "count": e.count, "ms": us / 1e3})
+    if not rows:
+        raise AssertionError("the profiler recorded no device events")
+    rows.sort(key=lambda r: -r["ms"])
+    busy = sum(r["ms"] for r in rows)
+    return {"request_ms": total, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / total, "top": rows[:10]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.models.vgg import build_layer_specs, gtzan_3s_config, init_params
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils import nvcc
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.time()
+    libs = nvcc.build(list(SOURCES))
+    emit({"phase": "build", "seconds": time.time() - t0,
+          "ptxas": {n: [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines()
+                        if "registers" in ln or "smem" in ln]
+                    for n, p in libs.items()}})
+
+    specs = build_layer_specs(gtzan_3s_config())
+    params = init_params(specs, seed=0, device="cuda")
+    classes = ["blues", "jazz", "rock"]
+    Us = {c: random_orthogonal(i + 1, 64) for i, c in enumerate(classes)}
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN, Us, K, 10, case="gtzan")
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(0)
+    wavs = [(rng.standard_normal((B_SERVE, 48000)) * 0.3).astype(np.float32)
+            for _ in classes]
+
+    # ---- the main path: three requests, counters read around them only
+    svc.explain(wavs[0], classes[0])            # first call: kernels load
+    chain.reset_launches()
+    t0 = time.time()
+    outs = [svc.explain(w, c) for w, c in zip(wavs, classes)]
+    serve_s = time.time() - t0
+    launches = dict(chain.LAUNCHES)
+    if launches != {"chain_block": 3 * len(classes), "first_layer": len(classes)}:
+        raise AssertionError(f"launch counts {launches}")
+    for out in outs:
+        std, sub = out["standard_heatmaps"], out["subspace_heatmaps"]
+        assert std.shape == (B_SERVE, 1, 128, 128) and sub.shape == (B_SERVE, K, 128, 128)
+        assert np.isfinite(std).all() and np.isfinite(sub).all()
+        np.testing.assert_allclose(std[:, 0], sub.sum(axis=1), rtol=1e-5,
+                                   atol=1e-6 * np.abs(std).max())
+    # unsorted heatmaps of request 0, chain kernels vs the plain tiled walk
+    got, _ = svc._dispatch(wavs[0], classes[0])
+    want, _ = svc._dispatch(wavs[0], classes[0], fused=False)
+    e2e_err = check_close("request vs plain path", got, want)
+    emit({"phase": "serve", "requests": len(classes), "batch": B_SERVE,
+          "seconds": serve_s, "launches": launches,
+          "max_abs_err_vs_plain": e2e_err, "max_abs_plain": want.abs().max().item()})
+
+    # the card against the CPU path (held against the JAX package by the
+    # tests) on a small input. The log-mel is compared first; the network and
+    # LRP then run on the same (CPU) mels on both: a max-pool window whose
+    # two largest entries, or a pre-activation, lie within the front-end's
+    # round-off flips a discrete LRP decision (route, gate, rule mask). U is
+    # a signed permutation, so U U^T is exact.
+    cfg = FrontendConfig.for_case("gtzan")
+    perm = np.zeros((64, 64), np.float32)
+    perm[np.arange(64), rng.permutation(64)] = rng.choice([-1.0, 1.0], 64)
+    small = torch.as_tensor(wavs[1][:4])
+    with torch.inference_mode():
+        mel_cpu = logmel(peak_normalize(small), cfg)[:, None]
+        mel_gpu = logmel(peak_normalize(small.cuda()), cfg)[:, None]
+    ref = {}
+    for dev in ("cpu", "cuda"):
+        p = {n: {k: v.to(dev) for k, v in d.items()} for n, d in params.items()}
+        sp = insert_projection(specs, 10, torch.as_tensor(perm, device=dev), K,
+                               input_size=(128, 128))
+        onehot = torch.zeros(10, device=dev)
+        onehot[3] = 1.0
+        with torch.inference_mode():
+            heat, logits = subspace_heatmaps(sp, p, mel_cpu.to(dev), svc.composite, K,
+                                             output_mask=lambda lg: lg * onehot[None, :])
+        ref[dev] = (heat.cpu(), logits.cpu())
+    emit({"phase": "card_vs_cpu", "batch": len(small),
+          "logmel_max_abs_err": check_close("card vs CPU log-mel", mel_gpu.cpu(), mel_cpu),
+          "max_abs_err": check_close("card vs CPU heatmaps", ref["cuda"][0], ref["cpu"][0]),
+          "logits_max_abs_err": check_close("card vs CPU logits", ref["cuda"][1], ref["cpu"][1])})
+
+    # ---- record the four launches of one 256-clip request
+    calls = []
+    originals = {"chain_block": chain.chain_block, "first_layer": chain.first_layer}
+
+    def recorder(name):
+        def run(*args):
+            calls.append((name, args))
+            return originals[name](*args)
+        return run
+
+    big = (rng.standard_normal((B_KERNEL, 48000)) * 0.3).astype(np.float32)
+    chain.chain_block, chain.first_layer = recorder("chain_block"), recorder("first_layer")
+    try:
+        heat, _ = svc._dispatch(big, classes[0])
+    finally:
+        chain.chain_block, chain.first_layer = originals["chain_block"], originals["first_layer"]
+    torch.cuda.synchronize()
+    assert torch.isfinite(heat).all()
+    assert [n for n, _ in calls] == ["chain_block"] * 3 + ["first_layer"]
+
+    plain_fns = {"chain_block": chain.chain_block_plain, "first_layer": chain.first_layer_plain}
+    work_fns = {"chain_block": chain_block_work, "first_layer": first_layer_work}
+    rows = []
+    for i, (name, args) in enumerate(calls):
+        with torch.inference_mode():
+            got = originals[name](*args)
+            want = plain_fns[name](*args)
+            torch.cuda.synchronize()
+            err = check_close(f"{name} launch {i}", got, want)
+            del got, want
+            ms_plain = cuda_ms(lambda: plain_fns[name](*args), 3)
+            ms = cuda_ms(lambda: originals[name](*args), 5)
+            ms_plain2 = cuda_ms(lambda: plain_fns[name](*args), 3)
+        flops, nbytes = work_fns[name](*args)
+        b_ms, b_by = bound(flops, nbytes)
+        shape = list(args[0].shape)
+        row = {"name": name, "launch": i, "relevance_in": shape, "flops": flops,
+               "bytes": nbytes, "max_abs_err": err, "ms": ms,
+               "plain_ms": min(ms_plain, ms_plain2), "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit({"phase": "kernel_vs_plain", "batch": B_KERNEL, "K": K, **row})
+
+    kernels = []
+    for name in SOURCES:
+        mine = [r for r in rows if r["name"] == name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine),
+            "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None})
+    del calls, heat
+
+    # ---- one 256-clip request end to end (host readback included), then
+    # the same request stage by stage and under the profiler
+    svc.explain(big, classes[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.explain(big, classes[1])
+    request_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc._dispatch(big, classes[1])
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    emit({"phase": "request", "batch": B_KERNEL, "request_ms": request_s * 1e3,
+          "dispatch_to_sync_ms": device_s * 1e3,
+          "clips_per_sec": B_KERNEL / request_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    stages = [staged_request(svc, big, classes[1]) for _ in range(STAGE_REPS)]
+    emit({"phase": "request_stages", "batch": B_KERNEL, "reps": STAGE_REPS,
+          "median_ms": {k: float(np.median([s[k] for s in stages])) for k in stages[0]}})
+    emit({"phase": "request_trace", "batch": B_KERNEL, **traced_request(svc, big, classes[1])})
+
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

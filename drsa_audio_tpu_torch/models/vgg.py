@@ -1,0 +1,270 @@
+"""VGG-style CNN as an explicit layer list (the port of
+drsa_audio_tpu.models.vgg).
+
+The model is a flat list of ``LayerSpec`` nodes plus parameters keyed by
+layer name (``features.N`` / ``classifier.N``, the reference's own names), so
+the LRP engine can walk it as an interpreter. Parameters are a plain dict
+{name: {"weight": tensor, "bias": tensor}}; ``VGG`` wraps the same tensors in
+an ``nn.Module`` whose state_dict keys are ``features.N.weight`` etc.
+
+Layouts: NCHW model input, OIHW conv weights, [out, in] linear weights. The
+``*_nhwc`` variants serve the conv section of the lower LRP segment, whose
+activations the explain path records channels-last. BatchNorm layers (the 6s
+model) have specs here but no apply yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer. ``kind`` is the op; ``config`` is static."""
+    kind: str            # conv | batchnorm | batchnorm1d | relu | maxpool |
+                         # linear | dropout | flatten | projection |
+                         # subspacefilter | invprojection
+    name: str
+    config: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class VGGConfig:
+    """Architecture hyperparameters (reference create_model.py:14-28)."""
+    n_filters: Sequence[int] = (32, 64, 96, 128)
+    conv_kernel: tuple = (3, 3)
+    pool_kernels: Sequence[tuple] = ((4, 4), (2, 4), (2, 2), (2, 2))
+    n_dense: int = 512
+    n_classes: int = 10
+    dropout: float = 0.2
+    block_depth: int = 2
+    dense_depth: int = 2
+    input_size: tuple = (128, 256)
+    conv_bn: bool = True
+    dense_bn: bool = True
+
+    @property
+    def flat_features(self) -> int:
+        h, w = self.input_size
+        for ph, pw in self.pool_kernels:
+            h, w = h // ph, w // pw
+        return h * w * self.n_filters[-1]
+
+
+def build_layer_specs(cfg: VGGConfig) -> list[LayerSpec]:
+    """[Conv -> (BN) -> ReLU] * block_depth -> MaxPool per block, then
+    [Linear -> (BN1d) -> ReLU -> Dropout] * dense_depth -> Linear."""
+    specs: list[LayerSpec] = []
+    idx = 0
+    in_ch = 1
+    for block, filters in enumerate(cfg.n_filters):
+        for d in range(cfg.block_depth):
+            specs.append(LayerSpec("conv", f"features.{idx}", {
+                "in_ch": in_ch if d == 0 else filters, "out_ch": filters,
+                "kernel": tuple(cfg.conv_kernel)}))
+            idx += 1
+            if cfg.conv_bn:
+                specs.append(LayerSpec("batchnorm", f"features.{idx}",
+                                       {"ch": filters}))
+                idx += 1
+            specs.append(LayerSpec("relu", f"features.{idx}", {}))
+            idx += 1
+        specs.append(LayerSpec("maxpool", f"features.{idx}",
+                               {"kernel": tuple(cfg.pool_kernels[block])}))
+        idx += 1
+        in_ch = filters
+    specs.append(LayerSpec("flatten", "flatten", {"features": cfg.flat_features}))
+    idx = 0
+    n_in = cfg.flat_features
+    for _ in range(cfg.dense_depth):
+        specs.append(LayerSpec("linear", f"classifier.{idx}",
+                               {"in_f": n_in, "out_f": cfg.n_dense}))
+        idx += 1
+        if cfg.dense_bn:
+            specs.append(LayerSpec("batchnorm1d", f"classifier.{idx}",
+                                   {"ch": cfg.n_dense}))
+            idx += 1
+        specs.append(LayerSpec("relu", f"classifier.{idx}", {}))
+        idx += 1
+        if cfg.dropout:
+            specs.append(LayerSpec("dropout", f"classifier.{idx}",
+                                   {"rate": cfg.dropout}))
+            idx += 1
+        n_in = cfg.n_dense
+    specs.append(LayerSpec("linear", f"classifier.{idx}",
+                           {"in_f": n_in, "out_f": cfg.n_classes}))
+    return specs
+
+
+def init_params(specs: Sequence[LayerSpec], seed: int, device="cuda") -> dict:
+    """Kaiming-uniform init with ReLU gain (the JAX package's 'he' scheme),
+    drawn from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    params: dict = {}
+
+    def uniform(shape, bound):
+        a = rng.uniform(-bound, bound, size=shape).astype(np.float32)
+        return torch.as_tensor(a, device=device)
+
+    for spec in specs:
+        if spec.kind == "conv":
+            kh, kw = spec.config["kernel"]
+            ci, co = spec.config["in_ch"], spec.config["out_ch"]
+            fan_in = ci * kh * kw
+            params[spec.name] = {
+                "weight": uniform((co, ci, kh, kw), np.sqrt(6.0 / fan_in)),
+                "bias": uniform((co,), 1.0 / np.sqrt(fan_in))}
+        elif spec.kind == "linear":
+            fi, fo = spec.config["in_f"], spec.config["out_f"]
+            params[spec.name] = {
+                "weight": uniform((fo, fi), np.sqrt(6.0 / fi)),
+                "bias": uniform((fo,), 1.0 / np.sqrt(fi))}
+    return params
+
+
+def conv2d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """Stride-1 'same' conv, NCHW x OIHW."""
+    return F.conv2d(x, w, b, padding="same")
+
+
+def conv2d_same_nhwc(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None) -> torch.Tensor:
+    """Stride-1 'same' conv on NHWC x with OIHW weights (channels-last
+    strides go straight to the conv)."""
+    return conv2d_same(x.permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1)
+
+
+def linear_apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return x @ w.T + b
+
+
+def maxpool2d(x: torch.Tensor, kernel: tuple) -> torch.Tensor:
+    """MaxPool with stride == kernel, NCHW (values only)."""
+    return F.max_pool2d(x, tuple(kernel))
+
+
+def maxpool2d_nhwc(x: torch.Tensor, kernel: tuple) -> torch.Tensor:
+    return maxpool2d(x.permute(0, 3, 1, 2), kernel).permute(0, 2, 3, 1)
+
+
+def apply_layer(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Inference-mode apply of one layer, NCHW."""
+    kind = spec.kind
+    if kind == "conv":
+        p = params[spec.name]
+        return conv2d_same(x, p["weight"], p.get("bias"))
+    if kind == "linear":
+        p = params[spec.name]
+        return linear_apply(x, p["weight"], p["bias"])
+    if kind == "relu":
+        return torch.clamp(x, min=0.0)
+    if kind == "maxpool":
+        return maxpool2d(x, spec.config["kernel"])
+    if kind == "flatten":
+        return x.reshape(x.shape[0], -1)
+    if kind in ("dropout", "subspacefilter"):
+        return x
+    if kind == "projection":
+        from drsa_audio_tpu_torch.models.projection import apply_projection
+        return apply_projection(x, spec.config["U"], spec.config["num_concepts"])
+    if kind == "invprojection":
+        from drsa_audio_tpu_torch.models.projection import apply_inv_projection
+        return apply_inv_projection(x, spec.config["U"],
+                                    spec.config["num_concepts"],
+                                    spec.config.get("map_hw"))
+    raise ValueError(f"unknown layer kind {kind}")
+
+
+def apply_layer_nhwc(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Inference-mode apply of the conv-section layer kinds, NHWC."""
+    kind = spec.kind
+    if kind == "conv":
+        p = params[spec.name]
+        return conv2d_same_nhwc(x, p["weight"], p.get("bias"))
+    if kind == "relu":
+        return torch.clamp(x, min=0.0)
+    if kind == "maxpool":
+        return maxpool2d_nhwc(x, spec.config["kernel"])
+    if kind == "dropout":
+        return x
+    raise ValueError(f"apply_layer_nhwc: unsupported kind {kind}")
+
+
+def forward(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Full inference forward -> logits."""
+    for spec in specs:
+        x = apply_layer(spec, params, x)
+    return x
+
+
+class VGG(nn.Module):
+    """The layer list as an nn.Module: state_dict keys are the reference's
+    ``features.N.weight`` / ``classifier.N.bias``. ``params()`` hands the same
+    tensors to the functional path."""
+
+    def __init__(self, cfg: VGGConfig):
+        super().__init__()
+        self.specs = build_layer_specs(cfg)
+        mods: dict[str, list] = {"features": [], "classifier": []}
+        for spec in self.specs:
+            if spec.kind == "flatten":
+                continue
+            section = spec.name.split(".")[0]
+            c = spec.config
+            if spec.kind == "conv":
+                m = nn.Conv2d(c["in_ch"], c["out_ch"], c["kernel"], padding="same")
+            elif spec.kind == "linear":
+                m = nn.Linear(c["in_f"], c["out_f"])
+            elif spec.kind == "maxpool":
+                m = nn.MaxPool2d(c["kernel"])
+            elif spec.kind == "dropout":
+                m = nn.Dropout(c["rate"])
+            elif spec.kind == "relu":
+                m = nn.ReLU()
+            else:
+                raise ValueError(f"VGG: {spec.kind} layers are not ported yet")
+            mods[section].append(m)
+        self.features = nn.Sequential(*mods["features"])
+        self.classifier = nn.Sequential(*mods["classifier"])
+
+    def params(self) -> dict:
+        out = {}
+        for spec in self.specs:
+            if spec.kind in ("conv", "linear"):
+                section, idx = spec.name.split(".")
+                m = getattr(self, section)[int(idx)]
+                out[spec.name] = {"weight": m.weight, "bias": m.bias}
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return forward(self.specs, self.params(), x)
+
+
+def gtzan_6s_config() -> VGGConfig:
+    """6 s GTZAN model (reference getdrsadata.py:72-73)."""
+    return VGGConfig(n_filters=(64, 64, 100, 128, 128), n_dense=100,
+                     pool_kernels=((2, 4), (2, 2), (2, 2), (2, 2), (2, 2)),
+                     dropout=0.3, input_size=(128, 256), n_classes=10,
+                     conv_bn=True, dense_bn=True, block_depth=2)
+
+
+def gtzan_3s_config() -> VGGConfig:
+    """3 s GTZAN model (reference cpf.py:410-412)."""
+    return VGGConfig(n_filters=(32, 32, 64, 64, 128), n_dense=128,
+                     pool_kernels=((2, 2),) * 5, dropout=0.4,
+                     input_size=(128, 128), n_classes=10, conv_bn=False,
+                     dense_bn=False, block_depth=1)
+
+
+def toy_config() -> VGGConfig:
+    """Toy 2-class model on 64x64 mels (reference cpf.py:260 toy dims)."""
+    return VGGConfig(n_filters=(8, 8, 16, 16, 16), n_dense=32,
+                     pool_kernels=((2, 2),) * 5, dropout=0.0,
+                     input_size=(64, 64), n_classes=2, conv_bn=False,
+                     dense_bn=False, block_depth=1, dense_depth=2)

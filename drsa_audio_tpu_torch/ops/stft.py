@@ -1,0 +1,63 @@
+"""STFT magnitude as a matmul DFT (the port of drsa_audio_tpu.ops.stft).
+
+Semantics match torchaudio.transforms.Spectrogram(power=None): periodic Hann
+window of length n_fft, center=True with reflect padding, one-sided, no
+normalisation. The magnitude is two plain matmuls against a DFT basis built in
+float64 and cast, so it agrees with the FFT path to float32 round-off.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def hann_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Periodic Hann window (torch.hann_window(periodic=True)), built in
+    float64 numpy then cast, as the JAX package builds it."""
+    n = np.arange(n_fft)
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / n_fft))
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+def _frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """Reflect-pad by n_fft//2 on both sides and cut overlapping frames.
+    [..., time] -> [..., n_frames, n_fft]."""
+    pad = n_fft // 2
+    lead = x.shape[:-1]
+    xp = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad),
+                                 mode="reflect")
+    frames = xp[:, 0].unfold(-1, n_fft, hop_length)
+    return frames.reshape(*lead, frames.shape[-2], n_fft)
+
+
+def dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real/imag one-sided DFT basis, each [n_fft, n_fft//2+1], float64 ->
+    float32."""
+    n_freq = n_fft // 2 + 1
+    t = np.arange(n_fft)[:, None]
+    k = np.arange(n_freq)[None, :]
+    ang = -2.0 * np.pi * t * k / n_fft
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_basis(n_fft: int, dtype: torch.dtype, device: torch.device):
+    """(window, cos basis, sin basis) on ``device``, built once: they are
+    constants of the config. Built outside inference mode so that later
+    callers in any mode may use them."""
+    with torch.inference_mode(False):
+        cos_b, sin_b = (torch.as_tensor(m, device=device) for m in dft_basis(n_fft))
+        return hann_window(n_fft, dtype, device), cos_b, sin_b
+
+
+def stft_mag_matmul(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """|STFT| as two matmuls: [..., time] -> [..., n_freq, n_frames]."""
+    frames = _frame_signal(x, n_fft, hop_length)
+    window, cos_b, sin_b = _device_basis(n_fft, frames.dtype, frames.device)
+    frames = frames * window
+    re = frames @ cos_b
+    im = frames @ sin_b
+    return torch.sqrt(re * re + im * im).transpose(-1, -2)

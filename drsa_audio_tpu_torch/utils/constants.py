@@ -1,0 +1,93 @@
+"""Case constants and LRP rule name-maps.
+
+The port's own copy of the JAX package's tables (drsa_audio_tpu.utils.
+constants); a test holds the two equal. Rule maps are plain data:
+(layer name, (rule name, kwargs)) pairs read by xai.lrp.engine.Composite.
+"""
+
+from __future__ import annotations
+
+CLASS_IDX_MAPPER = {
+    "pop": 0,
+    "metal": 1,
+    "disco": 2,
+    "blues": 3,
+    "reggae": 4,
+    "classical": 5,
+    "rock": 6,
+    "hiphop": 7,
+    "country": 8,
+    "jazz": 9,
+}
+
+CLASS_IDX_MAPPER_TOY = {"class1": 0, "class2": 1}
+
+# Per-case DSP parameters (reference constants.py:7-24).
+AUDIO_PARAMS = {
+    "gtzan": {
+        "sample_rate": 16000,
+        "slice_length": 3,
+        "num_chunks": 8,
+        "n_fft": 800,
+        "hop_length": 360,
+        "n_mels": 128,
+        "mel_width": 128,
+    },
+    "toy": {
+        "sample_rate": 16000,
+        "slice_length": 1,
+        "num_chunks": 1,
+        "n_fft": 480,
+        "hop_length": 240,
+        "n_mels": 64,
+        "mel_width": 64,
+    },
+    "gtzan_6s": {
+        "sample_rate": 16000,
+        "slice_length": 6,
+        "num_chunks": 4,
+        "n_fft": 800,
+        "hop_length": 360,
+        "n_mels": 128,
+        "mel_width": 256,
+    },
+}
+
+LRP_NAME_MAP_GTZAN = [
+    ("features.0", ("wsquare", {"stabilizer": 1e-7})),
+    ("features.3", ("gamma", {"gamma": 0.4, "stabilizer": 1e-7})),
+    ("features.6", ("gamma", {"gamma": 0.4, "stabilizer": 1e-7})),
+    ("features.9", ("gamma", {"gamma": 0.4 / 2, "stabilizer": 1e-7})),
+    ("features.12", ("gamma", {"gamma": 0.4 / 4, "stabilizer": 1e-7})),
+    ("classifier.0", ("epsilon", {"epsilon": 1e-7})),
+    ("classifier.3", ("epsilon", {"epsilon": 1e-7})),
+    ("classifier.6", ("epsilon", {"epsilon": 1e-7})),
+]
+
+LRP_NAME_MAP_TOY = [
+    ("features.0", ("flat", {"stabilizer": 1e-7})),
+    ("features.3", ("gamma", {"gamma": 0.8, "stabilizer": 1e-7})),
+    ("features.6", ("gamma", {"gamma": 0.8, "stabilizer": 1e-7})),
+    ("features.9", ("gamma", {"gamma": 0.8, "stabilizer": 1e-7})),
+    ("features.12", ("gamma", {"gamma": 0.8, "stabilizer": 1e-7})),
+    ("classifier.0", ("epsilon", {"epsilon": 1e-7})),
+    ("classifier.2", ("epsilon", {"epsilon": 1e-7})),
+    ("classifier.4", ("epsilon", {"epsilon": 1e-7})),
+]
+
+# 6 s GTZAN model (block_depth=2, BN folded): reference getdrsadata.py:87-108.
+LRP_NAME_MAP_GTZAN_6S = [
+    ("features.0", ("wsquare", {"stabilizer": 1e-7})),
+    ("features.3", ("gamma", {"gamma": 0.3, "stabilizer": 1e-7})),
+    ("features.7", ("gamma", {"gamma": 0.3, "stabilizer": 1e-7})),
+    ("features.10", ("gamma", {"gamma": 0.3, "stabilizer": 1e-7})),
+    ("features.14", ("gamma", {"gamma": 0.3 / 2, "stabilizer": 1e-7})),
+    ("features.17", ("gamma", {"gamma": 0.3 / 2, "stabilizer": 1e-7})),
+    ("features.21", ("gamma", {"gamma": 0.3 / 2, "stabilizer": 1e-7})),
+    ("features.24", ("gamma", {"gamma": 0.3 / 2, "stabilizer": 1e-7})),
+    ("features.28", ("gamma", {"gamma": 0.3 / 4, "stabilizer": 1e-7})),
+    ("features.31", ("gamma", {"gamma": 0.3 / 4, "stabilizer": 1e-7})),
+    ("classifier.0", ("epsilon", {"epsilon": 1e-7})),
+    ("classifier.4", ("epsilon", {"epsilon": 1e-7})),
+    ("classifier.8", ("epsilon", {"epsilon": 1e-7})),
+]

@@ -1,0 +1,204 @@
+"""Standard + per-subspace heatmaps (the port of drsa_audio_tpu.xai.explain).
+
+The fast path of the JAX package: the forward and ONE upper LRP backward run
+on the unrepeated batch down to the subspace filter; the K concept maskings
+of the filter relevance then go through the lower segment as K clones
+(LRP backward is linear in R for fixed activations), and the standard
+heatmap is their sum.
+
+The conv section of the lower segment is recorded channels-last (NHWC), the
+layout the chain kernels read. The lower segment runs either through the
+chain (xai.lrp.chain: CUDA kernels on the GPU, their plain versions on the
+CPU) or, with ``fused=False``, through the plain tiled rule walk.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from drsa_audio_tpu_torch.models.vgg import LayerSpec, apply_layer, apply_layer_nhwc
+from drsa_audio_tpu_torch.xai.lrp import chain
+from drsa_audio_tpu_torch.xai.lrp.engine import (
+    _RULE_LAYERS, Composite, LayerOp, _specialize_rule, output_mask_all_classes,
+    output_mask_class)
+from drsa_audio_tpu_torch.xai.lrp.rules import RULES
+
+
+def class_composite(name_map, num_concepts: int) -> Composite:
+    """Epsilon on the virtual projection layers, the subspace mask on the
+    filter (reference explainer.py:179-203)."""
+    entries = list(name_map)
+    entries.append(("features.invprojection", ("epsilon", {"epsilon": 1e-6})))
+    entries.append(("features.subspacefilter",
+                    ("subspace_mask", {"num_concepts": num_concepts})))
+    entries.append(("features.projection", ("epsilon", {"epsilon": 1e-6})))
+    return Composite.from_list(entries)
+
+
+def _split_at_filter(specs: Sequence[LayerSpec]):
+    idx = next(i for i, s in enumerate(specs) if s.kind == "subspacefilter")
+    return list(specs[:idx]), list(specs[idx + 1:])
+
+
+def _conv_section(lower):
+    if lower[-1].kind != "projection":
+        raise ValueError(f"lower segment must end at the projection, got {lower[-1].kind}")
+    return lower[:-1], lower[-1]
+
+
+def maxpool_route_mask(a: torch.Tensor, kernel: tuple) -> torch.Tensor:
+    """First-argmax routing mask of a stride == kernel max-pool, NCHW."""
+    return chain.route_mask(a, kernel, nhwc=False)
+
+
+def _unmapped_backward(spec, params, a_in, R, nhwc: bool):
+    """Relevance through a layer without a rule: the vjp of its forward."""
+    if spec.kind in ("conv", "linear"):
+        return LayerOp(spec, params, nhwc).vjp(R, a_in)
+    if spec.kind == "relu":
+        return R * chain.relu_gate(a_in)
+    if spec.kind == "maxpool":
+        k = spec.config["kernel"]
+        return chain.pool_backward(R, chain.route_mask(a_in, k, nhwc), k, nhwc)
+    if spec.kind == "flatten":
+        return R.reshape(a_in.shape)
+    if spec.kind in ("dropout", "subspacefilter"):
+        return R
+    raise ValueError(f"no backward for unmapped layer kind {spec.kind}")
+
+
+def _lrp_segment_backward(specs, params, acts, R, composite, nhwc: bool = False):
+    """Backward over a recorded segment (acts[i] is the input of specs[i]).
+    ``nhwc``: the conv section of the lower segment, channels-last."""
+    for i in range(len(specs) - 1, -1, -1):
+        spec = specs[i]
+        rule = composite.rule_for(spec.name)
+        if (rule is not None and spec.kind in _RULE_LAYERS
+                and spec.kind != "subspacefilter"):
+            rule_name, kwargs = rule
+            R = RULES[_specialize_rule(rule_name, specs, i)](
+                LayerOp(spec, params, nhwc), acts[i], R, **kwargs)
+        else:
+            R = _unmapped_backward(spec, params, acts[i], R, nhwc)
+    return R
+
+
+def explain_forward_upper(specs_proj: Sequence[LayerSpec], params: dict,
+                          x: torch.Tensor, composite: Composite,
+                          class_idx: int | None = None,
+                          num_classes: int | None = None,
+                          one_hot_encoded: bool = False, output_mask=None):
+    """Forward (recording the lower segment's activations) and ONE upper
+    backward down to the subspace filter.
+
+    The conv section is recorded NHWC (as the JAX package's nhwc=True); the
+    projection input stays NCHW. A relu that feeds a pool is recorded as its
+    pre-activation, and the pool input as relu(pre); the model pools the
+    pre-activation and relus the coarse result (max commutes with a monotone
+    function). Returns (R_filter [b, n, K, d_k], acts_lower, logits)."""
+    lower, upper = _split_at_filter(specs_proj)
+    conv_sec, proj_spec = _conv_section(lower)
+    acts_lower = []
+    h = x.permute(0, 2, 3, 1).contiguous()
+    i = 0
+    while i < len(conv_sec):
+        spec = conv_sec[i]
+        nxt = conv_sec[i + 1] if i + 1 < len(conv_sec) else None
+        if spec.kind == "relu" and nxt is not None and nxt.kind == "maxpool":
+            acts_lower.append(h)
+            acts_lower.append(torch.clamp(h, min=0.0))
+            h = torch.clamp(apply_layer_nhwc(nxt, params, h), min=0.0).contiguous()
+            i += 2
+        else:
+            acts_lower.append(h)
+            h = apply_layer_nhwc(spec, params, h).contiguous()
+            i += 1
+    h = h.permute(0, 3, 1, 2)
+    acts_lower.append(h)
+    h = apply_layer(proj_spec, params, h)
+    acts_upper = []
+    for spec in upper:
+        acts_upper.append(h)
+        h = apply_layer(spec, params, h)
+    logits = h
+    if output_mask is not None:
+        out_fn = output_mask
+    elif class_idx is not None:
+        out_fn = output_mask_class(class_idx, one_hot_encoded)
+    else:
+        out_fn = output_mask_all_classes(num_classes, one_hot_encoded)
+    R_filter = _lrp_segment_backward(upper, params, acts_upper, out_fn(logits),
+                                     composite)
+    return R_filter, tuple(acts_lower), logits
+
+
+def _tile(a: torch.Tensor, K: int) -> torch.Tensor:
+    """[b, ...] -> [K*b, ...], clone-major."""
+    return a.unsqueeze(0).expand(K, *a.shape).reshape(K * a.shape[0], *a.shape[1:])
+
+
+def explain_lower(specs_proj: Sequence[LayerSpec], params: dict, acts_lower,
+                  R_filter: torch.Tensor, composite: Composite,
+                  num_concepts: int, fused: bool | None = None):
+    """K concept maskings of the filter relevance through the lower segment;
+    the standard heatmap is their sum. ``fused`` (default: when plan_chain
+    accepts the conv section) runs the conv section through the chain;
+    ``fused=False`` runs the plain tiled rule walk on the K-fold batch.
+    Returns heatmaps [b, K+1, h, w] (index 0 = standard)."""
+    lower, _ = _split_at_filter(specs_proj)
+    conv_sec, proj_spec = _conv_section(lower)
+    K = num_concepts
+    b = R_filter.shape[0]
+    eye = torch.eye(K, dtype=R_filter.dtype, device=R_filter.device)
+    # clone k keeps concept k; clones fold clone-major into the batch [K*b]
+    R_masked = (R_filter[None] * eye[:, None, None, :, None]).reshape(
+        K * b, *R_filter.shape[1:])
+    plan = None
+    if fused is not False:
+        plan = chain.plan_chain(conv_sec, params, composite,
+                                fine_hw=acts_lower[0].shape[1:3])
+        if plan is None and fused:
+            raise ValueError("fused=True requested but the conv section is "
+                             "outside the chain's topology (see plan_chain)")
+    a_projk = _tile(acts_lower[-1], K)
+    rname, rkw = composite.rule_for(proj_spec.name)
+    R = RULES[rname](LayerOp(proj_spec, params), a_projk, R_masked, **rkw)
+    if plan is not None:
+        R_nhwc = R.reshape(K, b, *R.shape[1:]).permute(1, 0, 3, 4, 2).contiguous()
+        heat = chain.fused_lower_conv_backward(plan, params, list(acts_lower[:-1]),
+                                               R_nhwc, K)            # [b, K, H, W]
+    else:
+        acts_k = [_tile(a, K) for a in acts_lower[:-1]]
+        R = _lrp_segment_backward(conv_sec, params, acts_k,
+                                  R.permute(0, 2, 3, 1), composite, nhwc=True)
+        heat = R[..., 0].reshape(K, b, *R.shape[1:3]).transpose(0, 1)
+    return torch.cat([heat.sum(dim=1, keepdim=True), heat], dim=1)
+
+
+def subspace_heatmaps(specs_proj: Sequence[LayerSpec], params: dict,
+                      x: torch.Tensor, composite: Composite, num_concepts: int,
+                      class_idx: int | None = None, num_classes: int | None = None,
+                      one_hot_encoded: bool = False, output_mask=None,
+                      fused: bool | None = None):
+    """Fast path: heatmaps [b, K+1, h, w] (index 0 = standard) and logits.
+    ``specs_proj`` already holds the projection triple (insert_projection)."""
+    R_filter, acts_lower, logits = explain_forward_upper(
+        specs_proj, params, x, composite, class_idx=class_idx,
+        num_classes=num_classes, one_hot_encoded=one_hot_encoded,
+        output_mask=output_mask)
+    heat = explain_lower(specs_proj, params, acts_lower, R_filter, composite,
+                         num_concepts, fused=fused)
+    return heat, logits
+
+
+def sort_subspaces(subspace_heatmaps: np.ndarray):
+    """Sort each instance's subspace heatmaps by descending total relevance
+    (reference explainer.py:151-176). Returns (heatmaps, relevances, order)."""
+    rel = subspace_heatmaps.sum(axis=(-2, -1))
+    order = np.argsort(rel, axis=-1)[..., ::-1]
+    b = subspace_heatmaps.shape[0]
+    return (subspace_heatmaps[np.arange(b)[:, None], order],
+            rel[np.arange(b)[:, None], order], order)

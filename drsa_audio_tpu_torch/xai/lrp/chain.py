@@ -1,0 +1,408 @@
+"""The lower conv-section LRP backward as a chain of per-block kernels (the
+port of drsa_audio_tpu.xai.lrp.pallas_chain).
+
+The chain takes the relevance at the head conv's output ([b, K, h, w, d],
+NHWC, all K concept clones of each instance) down to the input heatmaps
+[b, K, H, W]. It runs one ``chain_block`` per block above the first, each
+covering the block's gamma convs and the max-pool below it, and one
+``first_layer`` for the first block's pool route, relu gate and wsquare/flat
+rule.
+
+Each of the two functions has a plain PyTorch version beside it
+(``*_plain``). The wrapper runs the plain version for tensors on the CPU and
+the CUDA kernel (``csrc/chain_block.cu``, ``csrc/first_layer.cu``) for CUDA
+tensors; it never falls back from one to the other. ``LAUNCHES`` counts the
+wrapper calls that launched a kernel.
+
+Layout is plain NHWC: the TPU kernels' column packing [H, W/P, P*C] existed
+only to fill 128-wide vector lanes and is not part of the math.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from drsa_audio_tpu_torch.models.vgg import conv2d_same_nhwc
+from drsa_audio_tpu_torch.xai.lrp.rules import stabilize
+
+LAUNCHES = {"chain_block": 0, "first_layer": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ shared pieces
+
+def relu_gate(a: torch.Tensor) -> torch.Tensor:
+    """The vjp of max(a, 0) as JAX takes it: 1 where a > 0, 0.5 at exact
+    zeros, 0 below. torch.relu's backward gives 0 at zero, so the gate is
+    written out. Tie semantics shared with route_mask: change one, change
+    both."""
+    return torch.where(a > 0, 1.0, torch.where(a == 0, 0.5, 0.0)).to(a.dtype)
+
+
+def route_mask(a: torch.Tensor, kernel: tuple, nhwc: bool = True) -> torch.Tensor:
+    """First-argmax routing mask of a stride == kernel max-pool, shape of
+    ``a``: each window's whole cotangent goes to its FIRST maximum in
+    row-major order (jax's reduce_window vjp, ties included)."""
+    kh, kw = kernel
+    if not nhwc:
+        a = a.movedim(1, -1)
+    *lead, H, W, C = a.shape
+    win = a.reshape(*lead, H // kh, kh, W // kw, kw, C)
+    eq = win == win.amax(dim=(-4, -2), keepdim=True)
+    pos = (torch.arange(kh, device=a.device)[:, None] * kw
+           + torch.arange(kw, device=a.device)[None, :]).view(kh, 1, kw, 1)
+    cand = torch.where(eq, pos, kh * kw)
+    mask = (eq & (cand == cand.amin(dim=(-4, -2), keepdim=True))).to(a.dtype)
+    mask = mask.reshape(*lead, H, W, C)
+    return mask if nhwc else mask.movedim(-1, 1)
+
+
+def pool_backward(R: torch.Tensor, mask: torch.Tensor, kernel: tuple,
+                  nhwc: bool = True) -> torch.Tensor:
+    """Route coarse relevance through the pool: upsample, times the mask."""
+    kh, kw = kernel
+    hd, wd = (-3, -2) if nhwc else (-2, -1)
+    return R.repeat_interleave(kh, dim=hd).repeat_interleave(kw, dim=wd) * mask
+
+
+def _conv_t_nhwc(g, w):
+    return F.conv_transpose2d(g.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+
+
+# ----------------------------------------------------------- weight prep
+
+@dataclasses.dataclass
+class GammaConv:
+    """One inner gamma conv, prepared (port of _prep_inner_weights, in plain
+    NHWC). wz1 = w + g*w+, wz3 = w + g*w- (OIHW); biases = (b + g*b+, b,
+    b + g*b-). ``w_prep`` [9, Ci, 2*Co] and ``w_apply`` [9, Co, Ci] are the
+    kernel's tap layouts of the forward pair and of the transposed wz1."""
+    wz1: torch.Tensor
+    wz3: torch.Tensor
+    biases: torch.Tensor
+    inv: float
+    stab: float
+    w_prep: torch.Tensor
+    w_apply: torch.Tensor
+
+    @property
+    def ci(self) -> int:
+        return self.wz1.shape[1]
+
+    @property
+    def co(self) -> int:
+        return self.wz1.shape[0]
+
+
+def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
+    p = params[spec.name]
+    w, b = p["weight"], p["bias"]
+    g = float(kwargs.get("gamma", 0.25))
+    wz1 = w + g * torch.clamp(w, min=0.0)
+    wz3 = w + g * torch.clamp(w, max=0.0)
+    biases = torch.stack([b + g * torch.clamp(b, min=0.0), b,
+                          b + g * torch.clamp(b, max=0.0)])
+    co, ci = w.shape[:2]
+    return GammaConv(
+        wz1=wz1, wz3=wz3, biases=biases.contiguous(),
+        inv=float(np.float32(1.0 / (2.0 + g))),
+        stab=float(kwargs.get("stabilizer", 1e-6)),
+        w_prep=torch.cat([wz1, wz3]).permute(2, 3, 1, 0).reshape(9, ci, 2 * co).contiguous(),
+        w_apply=wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous())
+
+
+@dataclasses.dataclass
+class FirstLayer:
+    """The first conv's wsquare/flat pieces (port of _prep_first_weights):
+    rule weights ``wm`` [C, 1, 3, 3], the input-independent denominator
+    ``z0`` [H, W, C] and the kernel's transposed-conv taps [9, C]."""
+    wm: torch.Tensor
+    z0: torch.Tensor
+    taps: torch.Tensor
+    stab0: float
+
+
+def prep_first_weights(params: dict, spec, rule, fine_hw) -> FirstLayer:
+    p = params[spec.name]
+    w, b = p["weight"], p.get("bias")
+    name, kwargs = rule
+    if w.shape[1] != 1:
+        raise ValueError("the first-layer tail needs a single input channel")
+    if name == "wsquare":
+        wm, bm = w * w, (b * b if b is not None else None)
+    else:                                   # flat
+        wm, bm = torch.ones_like(w), None
+    ones = torch.ones((1, 1) + tuple(fine_hw), dtype=w.dtype, device=w.device)
+    z0 = F.conv2d(ones, wm, bm, padding=1)[0].permute(1, 2, 0).contiguous()
+    taps = wm[:, 0].flip(1, 2).permute(1, 2, 0).reshape(9, -1).contiguous()
+    return FirstLayer(wm=wm, z0=z0, taps=taps,
+                      stab0=float(kwargs.get("stabilizer", 1e-6)))
+
+
+# ------------------------------------------------------------ chain_block
+
+def chain_block_plain(R: torch.Tensor, xs: Sequence[torch.Tensor],
+                      convs: Sequence[GammaConv], apre: torch.Tensor | None = None,
+                      pool: tuple | None = None) -> torch.Tensor:
+    """Plain version of chain_block. R [b, K, H, W, Co] at the top conv's
+    output; xs the convs' recorded inputs [b, H, W, Ci], top-down; apre the
+    pre-relu input of the pool below [b, H*kh, W*kw, Ci] and pool its
+    kernel, or None. Returns R at the block's input level (fine level if a
+    pool is below)."""
+    b, K = R.shape[:2]
+    for x, cv in zip(xs, convs):
+        b1, b0, b2 = (v.view(1, 1, 1, -1) for v in cv.biases)
+        z1 = conv2d_same_nhwc(x, cv.wz1, None) + b1
+        z3 = conv2d_same_nhwc(x, cv.wz3, None)
+        z_true = (z1 + z3 - b1) * cv.inv + b0
+        m1 = (z_true > 0).to(R.dtype) / stabilize(z1 + b2, cv.stab)
+        m3 = (z_true < 0).to(R.dtype) / stabilize(z3, cv.stab)
+        Rg = R * relu_gate(z_true)[:, None]
+        H, W = x.shape[1:3]
+        c = (_conv_t_nhwc((Rg * m1[:, None]).reshape(b * K, H, W, cv.co), cv.wz1)
+             + _conv_t_nhwc((Rg * m3[:, None]).reshape(b * K, H, W, cv.co), cv.wz3))
+        R = x[:, None] * c.reshape(b, K, H, W, cv.ci)
+    if apre is not None:
+        mask = route_mask(torch.clamp(apre, min=0.0), pool)
+        R = pool_backward(R, mask[:, None], pool)
+    return R
+
+
+def _lib(name: str):
+    from drsa_audio_tpu_torch.utils import nvcc
+    lib = nvcc.load(name)
+    if not getattr(lib, "_typed", False):
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "chain_block":
+            lib.chain_gamma_prep.argtypes = [P, P, P, P, I, I, I, I, I, Fl, Fl, P]
+            lib.chain_gamma_apply.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+            lib.chain_gamma_prep.restype = lib.chain_gamma_apply.restype = I
+        else:
+            lib.first_layer.argtypes = [P, P, P, P, P, I, I, I, I, I, Fl, P]
+            lib.first_layer.restype = I
+        lib._typed = True
+    return lib
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on the GPU")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous float32")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
+                convs: Sequence[GammaConv], apre: torch.Tensor | None = None,
+                pool: tuple | None = None) -> torch.Tensor:
+    """One block of the chain. Same contract as chain_block_plain; CPU
+    tensors take the plain version, CUDA tensors the kernel
+    (csrc/chain_block.cu, two launches per conv; one count per call).
+
+    Replaces drsa_audio_tpu/xai/lrp/pallas_chain.py:624 _chain_block_kernel.
+    Bound on an H100: operations (two forward convs per instance and one
+    transposed conv per clone, f32 on the FMA units). Design: the
+    clone-shared masks are computed once per instance into a scratch G, the
+    convT(R * m3) term of the gamma rule is skipped because the relu gate
+    zeroes it, and each thread keeps 8-16 output channels of one pixel in
+    registers over a shared-memory tile with halo."""
+    if R.device.type == "cpu":
+        return chain_block_plain(R, xs, convs, apre, pool)
+    b, K = R.shape[:2]
+    _check_cuda("chain_block", R, *xs, *(apre,) if apre is not None else (),
+                *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
+    for cv in convs:
+        if cv.ci % 8 or cv.co % 8 or max(cv.ci, cv.co) > 128:
+            raise ValueError("chain_block: channel counts must be multiples "
+                             "of 8 and at most 128")
+    if (pool is not None and pool[0] != 2) or b > 65535:
+        raise ValueError("chain_block: pools must be (2, kw); batch at most 65535")
+    lib = _lib("chain_block")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
+    for j, (x, cv) in enumerate(zip(xs, convs)):
+        _, H, W, _ = x.shape
+        if tuple(R.shape) != (b, K, H, W, cv.co) or x.shape[-1] != cv.ci:
+            raise ValueError("chain_block: relevance / activation shapes disagree")
+        G = torch.empty((b, H, W, cv.co), device=R.device)
+        _raise_on(lib.chain_gamma_prep(
+            x.data_ptr(), cv.w_prep.data_ptr(), cv.biases.data_ptr(),
+            G.data_ptr(), b, H, W, cv.ci, cv.co, cv.inv, cv.stab, stream),
+            "chain_gamma_prep")
+        last_pool = apre is not None and j == len(convs) - 1
+        kh, kw = pool if last_pool else (1, 1)
+        if last_pool and tuple(apre.shape) != (b, H * kh, W * kw, cv.ci):
+            raise ValueError("chain_block: pool input shape disagrees")
+        out = torch.empty((b, K, H * kh, W * kw, cv.ci), device=R.device)
+        _raise_on(lib.chain_gamma_apply(
+            R.data_ptr(), G.data_ptr(), x.data_ptr(), cv.w_apply.data_ptr(),
+            apre.data_ptr() if last_pool else None, out.data_ptr(),
+            b, K, H, W, cv.ci, cv.co, kh, kw, stream), "chain_gamma_apply")
+        R = out
+    LAUNCHES["chain_block"] += 1
+    return R
+
+
+# ------------------------------------------------------------ first_layer
+
+def first_layer_plain(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tensor:
+    """Plain version of first_layer. R [b, K, H/2, W/2, C] at the output of
+    the first block's pool; a1 [b, H, W, C] the first conv's pre-relu
+    output. Returns heatmaps [b, K, H, W]."""
+    b, K = R.shape[:2]
+    H, W, C = a1.shape[1:]
+    Fm = (route_mask(torch.clamp(a1, min=0.0), (2, 2)) * relu_gate(a1)
+          / stabilize(fl.z0, fl.stab0))
+    s0 = pool_backward(R, Fm[:, None], (2, 2))
+    heat = F.conv_transpose2d(s0.reshape(b * K, H, W, C).permute(0, 3, 1, 2),
+                              fl.wm, padding=1)
+    return heat.reshape(b, K, H, W)
+
+
+def first_layer(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tensor:
+    """Pool route + relu gate + first-layer rule. CPU tensors take the
+    plain version, CUDA tensors the kernel (csrc/first_layer.cu, one launch
+    and one count per call).
+
+    Replaces drsa_audio_tpu/xai/lrp/pallas_chain.py:709 _first_layer_kernel
+    (and its mm_taps / recompute flag variants, the same function). Bound
+    on an H100: bytes (R and a1 read once, K maps written). Design: one
+    block per (clone, 8-row band, instance), clones adjacent in the grid so
+    a1 is re-read from L2; the multiplier F is formed in shared memory and
+    never stored."""
+    if R.device.type == "cpu":
+        return first_layer_plain(R, a1, fl)
+    _check_cuda("first_layer", R, a1, fl.z0, fl.taps)
+    b, K, Hc, Wc, C = R.shape
+    H, W = a1.shape[1:3]
+    if (tuple(a1.shape) != (b, 2 * Hc, 2 * Wc, C) or tuple(fl.z0.shape) != (H, W, C)
+            or H % 8 or C % 8 or W > 512 or b > 65535):
+        raise ValueError("first_layer: unsupported shapes")
+    heat = torch.empty((b, K, H, W), device=R.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
+    _raise_on(_lib("first_layer").first_layer(
+        R.data_ptr(), a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(),
+        heat.data_ptr(), b, K, H, W, C, fl.stab0, stream), "first_layer")
+    LAUNCHES["first_layer"] += 1
+    return heat
+
+
+# ------------------------------------------------------------- host plan
+
+def plan_chain(conv_section: Sequence, params: dict, composite,
+               fine_hw: tuple | None = None):
+    """Check the conv section against the chain's topology and collect
+    per-block metadata; None when it does not fit (the caller then takes
+    the plain tiled path, as the JAX package takes its XLA path).
+
+    Topology, bottom-up: conv(wsquare/flat, Cin=1) relu [conv(gamma) relu]
+    maxpool(2,2|2,4), then [conv(gamma) relu]+ maxpool(2,2) blocks, then a
+    [conv(gamma) relu]+ head. 3x3 convs with bias, at most 128 channels;
+    block 0 holds at most one gamma conv above the first conv; a (2,4)
+    pool only above block 0. ``fine_hw`` also checks that every pool
+    divides its level. The TPU plan's lane-packing conditions do not
+    apply."""
+    specs = list(conv_section)
+    if len(specs) < 2 or specs[0].kind != "conv" or specs[-1].kind != "relu":
+        return None
+    blocks = []
+    cur: list = []
+    i, n = 0, len(specs)
+    while i < n:
+        if specs[i].kind != "conv":
+            return None
+        cur.append(i)
+        if i + 1 >= n or specs[i + 1].kind != "relu":
+            return None
+        i += 2
+        if i == n:
+            blocks.append({"convs": cur, "pool_above": None})
+            break
+        if specs[i].kind == "maxpool":
+            kh, kw = specs[i].config["kernel"]
+            if kh != 2 or kw not in (2, 4):
+                return None
+            blocks.append({"convs": cur, "pool_above": (i, kh, kw)})
+            cur = []
+            i += 1
+    if len(blocks) < 2 or blocks[-1]["pool_above"] is not None:
+        return None
+    first_rule = composite.rule_for(specs[0].name)
+    if first_rule is None or first_rule[0] not in ("wsquare", "flat"):
+        return None
+    if params[specs[0].name]["weight"].shape[1] != 1:
+        return None
+    for blk in blocks:
+        for ci in blk["convs"]:
+            if tuple(params[specs[ci].name]["weight"].shape[2:]) != (3, 3):
+                return None
+    if len(blocks[0]["convs"]) > 2:
+        return None
+    for blk in blocks:
+        blk["rules"] = {}
+        for ci in blk["convs"]:
+            if ci == 0:
+                continue
+            rule = composite.rule_for(specs[ci].name)
+            if rule is None or rule[0] not in ("gamma", "gamma_nonneg"):
+                return None
+            p = params[specs[ci].name]
+            if p.get("bias") is None or max(p["weight"].shape[:2]) > 128:
+                return None
+            blk["rules"][ci] = rule[1]
+    for bi in range(len(blocks) - 1):
+        if blocks[bi]["pool_above"][2] == 4 and bi != 0:
+            return None
+    if len(blocks[0]["convs"]) == 1 and blocks[0]["pool_above"][2] != 2:
+        return None
+    if fine_hw is not None:
+        H, W = int(fine_hw[0]), int(fine_hw[1])
+        for blk in blocks[:-1]:
+            _, kh, kw = blk["pool_above"]
+            if H % kh or W % kw:
+                return None
+            H, W = H // kh, W // kw
+    return {"specs": specs, "blocks": blocks, "first_rule": first_rule}
+
+
+def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tensor,
+                              K: int) -> torch.Tensor:
+    """Run the chain. acts_nhwc: the recorded NHWC input of every
+    conv-section layer (explain_forward_upper); R_nhwc [b, K, h, w, d] at the
+    head conv's output. Returns heatmaps [b, K, H, W]."""
+    specs, blocks = plan["specs"], plan["blocks"]
+    if len(blocks[0]["convs"]) != 1:
+        raise NotImplementedError(
+            "the deep first block (a gamma conv between the first conv and "
+            "its pool, the 6s model) runs the TPU kernel "
+            "pallas_chain.py:668 _first_block_deep_kernel, which is not "
+            "ported yet")
+    R = R_nhwc
+    for i in range(len(blocks) - 1, 0, -1):
+        blk = blocks[i]
+        convs_td = list(reversed(blk["convs"]))
+        cws = [prep_inner_weights(params, specs[ci], blk["rules"][ci])
+               for ci in convs_td]
+        xs = [acts_nhwc[ci] for ci in convs_td]
+        if i >= 2:
+            pi, kh, kw = blocks[i - 1]["pool_above"]
+            R = chain_block(R, xs, cws, acts_nhwc[pi - 1], (kh, kw))
+        else:
+            R = chain_block(R, xs, cws)
+    a1 = acts_nhwc[1]
+    fl = prep_first_weights(params, specs[0], plan["first_rule"], a1.shape[1:3])
+    return first_layer(R, a1, fl)
