@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds both CUDA kernels
+1. Prints the card's name and power limit, builds the three CUDA kernels
    (csrc/*.cu, one nvcc each, in parallel).
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
@@ -21,6 +21,21 @@
    the same request (upload, front-end, forward + upper LRP, lower segment,
    readback, sort; medians of STAGE_REPS), and traces one request with
    torch.profiler for the device time of each kernel and the idle share.
+6. The GTZAN-6s flagship at full width (filters 64/64/100/128/128, 6 s clips
+   of 96,000 samples, 128x256 mels; seeded random weights and BatchNorm
+   statistics, folded): three requests of 32 clips at DRSA layer 33 with the
+   counters set to 0 just before and read just after (chain_block 4 times,
+   first_block_deep once, first_layer never, per request), the same checks
+   as 2; then one 32-clip request each at layers 26 and 19 (chain_block 3
+   and 2 times).
+7. Records the five kernel launches of one 64-clip layer-33 request and
+   holds and times each against its plain version, as 4.
+8. Times one 64-clip 6s request end to end, by stages, and traced, as 5.
+
+The kernels line gives, for each kernel, its numbers per path under
+"paths" (3s at batch 256, 6s at batch 64, per request: the launches of one
+request summed) and at its top level their sums over the paths (launches:
+the counts of the served requests of 2 and 6; max_abs_err: the largest).
 
 Tolerance for every comparison: rtol 1e-4, atol 1e-5 * max|plain| (the JAX
 package's own fused-vs-tiled bound). Prints JSON lines; the line before the
@@ -35,17 +50,19 @@ import time
 
 import numpy as np
 
-B_SERVE, B_KERNEL, K = 32, 256, 4
+B_SERVE, B_KERNEL, B_KERNEL_6S, K = 32, 256, 64, 4
 STAGE_REPS = 5
 PEAK_FLOPS = 67e12        # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TPU_KERNELS = {
     "chain_block": "drsa_audio_tpu/xai/lrp/pallas_chain.py:624",
     "first_layer": "drsa_audio_tpu/xai/lrp/pallas_chain.py:709",
+    "first_block_deep": "drsa_audio_tpu/xai/lrp/pallas_chain.py:668",
 }
 SOURCES = {
     "chain_block": "drsa_audio_tpu_torch/csrc/chain_block.cu",
     "first_layer": "drsa_audio_tpu_torch/csrc/first_layer.cu",
+    "first_block_deep": "drsa_audio_tpu_torch/csrc/first_block_deep.cu",
 }
 
 
@@ -105,6 +122,21 @@ def first_layer_work(R, a1, fl):
     H, W, C = a1.shape[1:]
     flops = 2.0 * b * k * H * W * C * 9
     nbytes = 4.0 * (R.numel() + a1.numel() + fl.z0.numel() + fl.taps.numel() + b * k * H * W)
+    return flops, nbytes
+
+
+def first_block_deep_work(R, a1, apre, gconv, fl, pool):
+    """The gamma conv's two forward convs per instance and one transposed
+    conv per clone (its zero term skipped, as in chain_block_work), then
+    the 3x3 tail to one channel per clone; R, a1, apre, the weights and
+    z0 read once, the K maps written once."""
+    b, k = R.shape[:2]
+    H, W, C0 = a1.shape[1:]
+    C = apre.shape[-1]
+    flops = 2.0 * (2 + k) * b * H * W * C0 * C * 9 + 2.0 * k * b * H * W * C0 * 9
+    nbytes = 4.0 * (R.numel() + a1.numel() + apre.numel() + gconv.w_prep.numel()
+                    + gconv.w_apply.numel() + fl.z0.numel() + fl.taps.numel()
+                    + b * k * H * W)
     return flops, nbytes
 
 
@@ -204,20 +236,156 @@ def traced_request(svc, wavs, class_name: str) -> dict:
             "device_idle_share": 1.0 - busy / total, "top": rows[:10]}
 
 
+def serve_checks(svc, wavs, class_names, shape, counts, name) -> dict:
+    """Serve one request per class with every launch counter set to 0 just
+    before and read just after; check the launch counts, the heatmaps'
+    shape, finiteness and standard = sum of the subspace maps, then one
+    request's unsorted heatmaps against the plain tiled walk."""
+    import torch
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    chain.reset_launches()
+    t0 = time.time()
+    outs = [svc.explain(w, c) for w, c in zip(wavs, class_names)]
+    seconds = time.time() - t0
+    launches = dict(chain.LAUNCHES)
+    want_counts = {k: v * len(class_names) for k, v in counts.items()}
+    if launches != want_counts:
+        raise AssertionError(f"{name}: launch counts {launches}, expected {want_counts}")
+    b, h, w = shape
+    for out in outs:
+        std, sub = out["standard_heatmaps"], out["subspace_heatmaps"]
+        assert std.shape == (b, 1, h, w) and sub.shape == (b, K, h, w), (std.shape, sub.shape)
+        assert np.isfinite(std).all() and np.isfinite(sub).all()
+        np.testing.assert_allclose(std[:, 0], sub.sum(axis=1), rtol=1e-5,
+                                   atol=1e-6 * np.abs(std).max())
+    got, _ = svc._dispatch(wavs[0], class_names[0])
+    want, _ = svc._dispatch(wavs[0], class_names[0], fused=False)
+    torch.cuda.synchronize()
+    return {"phase": name, "requests": len(class_names), "batch": b, "seconds": seconds,
+            "launches": launches,
+            "max_abs_err_vs_plain": check_close(f"{name} request vs plain path", got, want),
+            "max_abs_plain": want.abs().max().item()}
+
+
+def phase_tag(path: str) -> str:
+    """Suffix of a path's phase names; the 3s phases keep their names from
+    before the 6s path was added."""
+    return "" if path == "3s" else "_" + path
+
+
+def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
+    """Record the kernel launches of one request, hold each kernel against
+    its plain PyTorch version on the recorded inputs, and time both with
+    CUDA events beside the kernel's bound."""
+    import torch
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    names = list(SOURCES)
+    originals = {n: getattr(chain, n) for n in names}
+    plain_fns = {n: getattr(chain, n + "_plain") for n in names}
+    work_fns = {"chain_block": chain_block_work, "first_layer": first_layer_work,
+                "first_block_deep": first_block_deep_work}
+    calls = []
+
+    def recorder(name):
+        def run(*args):
+            calls.append((name, args))
+            return originals[name](*args)
+        return run
+
+    for n in names:
+        setattr(chain, n, recorder(n))
+    try:
+        heat, _ = svc._dispatch(wavs, class_name)
+    finally:
+        for n in names:
+            setattr(chain, n, originals[n])
+    torch.cuda.synchronize()
+    assert torch.isfinite(heat).all()
+    del heat
+    if [n for n, _ in calls] != expected:
+        raise AssertionError(f"{path}: recorded {[n for n, _ in calls]}")
+    rows = []
+    for i, (name, args) in enumerate(calls):
+        with torch.inference_mode():
+            got = originals[name](*args)
+            want = plain_fns[name](*args)
+            torch.cuda.synchronize()
+            err = check_close(f"{path} {name} launch {i}", got, want)
+            del got, want
+            ms_plain = cuda_ms(lambda: plain_fns[name](*args), 3)
+            ms = cuda_ms(lambda: originals[name](*args), 5)
+            ms_plain2 = cuda_ms(lambda: plain_fns[name](*args), 3)
+        flops, nbytes = work_fns[name](*args)
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"name": name, "launch": i, "relevance_in": list(args[0].shape),
+               "flops": flops, "bytes": nbytes, "max_abs_err": err, "ms": ms,
+               "plain_ms": min(ms_plain, ms_plain2), "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit({"phase": "kernel_vs_plain" + phase_tag(path), "batch": batch, "K": K, **row})
+    return rows
+
+
+def request_phases(svc, wavs, class_name, path) -> None:
+    """One request end to end (host readback included), then the same
+    request stage by stage and under the profiler."""
+    import torch
+
+    batch = len(wavs)
+    svc.explain(wavs, class_name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc.explain(wavs, class_name)
+    request_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc._dispatch(wavs, class_name)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    emit({"phase": "request" + phase_tag(path), "batch": batch, "request_ms": request_s * 1e3,
+          "dispatch_to_sync_ms": device_s * 1e3,
+          "clips_per_sec": batch / request_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    stages = [staged_request(svc, wavs, class_name) for _ in range(STAGE_REPS)]
+    emit({"phase": "request_stages" + phase_tag(path), "batch": batch, "reps": STAGE_REPS,
+          "median_ms": {k: float(np.median([s[k] for s in stages])) for k in stages[0]}})
+    emit({"phase": "request_trace" + phase_tag(path), "batch": batch,
+          **traced_request(svc, wavs, class_name)})
+
+
+def random_bn_stats(params: dict, seed: int) -> dict:
+    """Seeded random BatchNorm scale, bias, mean and var, so that the fold
+    is not the identity."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = dict(params)
+    for name, p in params.items():
+        if "running_var" in p:
+            ch = p["running_var"].shape[0]
+            draw = {"weight": rng.uniform(0.5, 1.5, ch), "bias": rng.normal(0.0, 0.1, ch),
+                    "running_mean": rng.normal(0.0, 0.1, ch),
+                    "running_var": rng.uniform(0.5, 2.0, ch)}
+            out[name] = {k: torch.as_tensor(v.astype(np.float32), device=p["running_var"].device)
+                         for k, v in draw.items()}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from drsa_audio_tpu_torch.models.projection import insert_projection
-    from drsa_audio_tpu_torch.models.vgg import build_layer_specs, gtzan_3s_config, init_params
+    from drsa_audio_tpu_torch.models.vgg import (
+        build_layer_specs, fold_batchnorm, gtzan_3s_config, gtzan_6s_config, init_params)
     from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
     from drsa_audio_tpu_torch.serving import ExplainerService
     from drsa_audio_tpu_torch.utils import nvcc
-    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN, LRP_NAME_MAP_GTZAN_6S
     from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
     from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
-    from drsa_audio_tpu_torch.xai.lrp import chain
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -233,6 +401,7 @@ def main() -> int:
                         if "registers" in ln or "smem" in ln]
                     for n, p in libs.items()}})
 
+    # ---------------------------------------------------------------- 3s
     specs = build_layer_specs(gtzan_3s_config())
     params = init_params(specs, seed=0, device="cuda")
     classes = ["blues", "jazz", "rock"]
@@ -243,28 +412,12 @@ def main() -> int:
     wavs = [(rng.standard_normal((B_SERVE, 48000)) * 0.3).astype(np.float32)
             for _ in classes]
 
-    # ---- the main path: three requests, counters read around them only
+    # the main path: three requests, counters read around them only
     svc.explain(wavs[0], classes[0])            # first call: kernels load
-    chain.reset_launches()
-    t0 = time.time()
-    outs = [svc.explain(w, c) for w, c in zip(wavs, classes)]
-    serve_s = time.time() - t0
-    launches = dict(chain.LAUNCHES)
-    if launches != {"chain_block": 3 * len(classes), "first_layer": len(classes)}:
-        raise AssertionError(f"launch counts {launches}")
-    for out in outs:
-        std, sub = out["standard_heatmaps"], out["subspace_heatmaps"]
-        assert std.shape == (B_SERVE, 1, 128, 128) and sub.shape == (B_SERVE, K, 128, 128)
-        assert np.isfinite(std).all() and np.isfinite(sub).all()
-        np.testing.assert_allclose(std[:, 0], sub.sum(axis=1), rtol=1e-5,
-                                   atol=1e-6 * np.abs(std).max())
-    # unsorted heatmaps of request 0, chain kernels vs the plain tiled walk
-    got, _ = svc._dispatch(wavs[0], classes[0])
-    want, _ = svc._dispatch(wavs[0], classes[0], fused=False)
-    e2e_err = check_close("request vs plain path", got, want)
-    emit({"phase": "serve", "requests": len(classes), "batch": B_SERVE,
-          "seconds": serve_s, "launches": launches,
-          "max_abs_err_vs_plain": e2e_err, "max_abs_plain": want.abs().max().item()})
+    serve = serve_checks(svc, wavs, classes, (B_SERVE, 128, 128),
+                         {"chain_block": 3, "first_layer": 1, "first_block_deep": 0}, "serve")
+    launches = {"3s": serve["launches"]}
+    emit(serve)
 
     # the card against the CPU path (held against the JAX package by the
     # tests) on a small input. The log-mel is compared first; the network and
@@ -294,82 +447,70 @@ def main() -> int:
           "logmel_max_abs_err": check_close("card vs CPU log-mel", mel_gpu.cpu(), mel_cpu),
           "max_abs_err": check_close("card vs CPU heatmaps", ref["cuda"][0], ref["cpu"][0]),
           "logits_max_abs_err": check_close("card vs CPU logits", ref["cuda"][1], ref["cpu"][1])})
-
-    # ---- record the four launches of one 256-clip request
-    calls = []
-    originals = {"chain_block": chain.chain_block, "first_layer": chain.first_layer}
-
-    def recorder(name):
-        def run(*args):
-            calls.append((name, args))
-            return originals[name](*args)
-        return run
+    del ref
 
     big = (rng.standard_normal((B_KERNEL, 48000)) * 0.3).astype(np.float32)
-    chain.chain_block, chain.first_layer = recorder("chain_block"), recorder("first_layer")
-    try:
-        heat, _ = svc._dispatch(big, classes[0])
-    finally:
-        chain.chain_block, chain.first_layer = originals["chain_block"], originals["first_layer"]
-    torch.cuda.synchronize()
-    assert torch.isfinite(heat).all()
-    assert [n for n, _ in calls] == ["chain_block"] * 3 + ["first_layer"]
+    rows = {"3s": kernel_rows(svc, big, classes[0], ["chain_block"] * 3 + ["first_layer"],
+                              B_KERNEL, "3s")}
+    request_phases(svc, big, classes[1], "3s")
+    del svc, big, params
+    torch.cuda.empty_cache()
 
-    plain_fns = {"chain_block": chain.chain_block_plain, "first_layer": chain.first_layer_plain}
-    work_fns = {"chain_block": chain_block_work, "first_layer": first_layer_work}
-    rows = []
-    for i, (name, args) in enumerate(calls):
-        with torch.inference_mode():
-            got = originals[name](*args)
-            want = plain_fns[name](*args)
-            torch.cuda.synchronize()
-            err = check_close(f"{name} launch {i}", got, want)
-            del got, want
-            ms_plain = cuda_ms(lambda: plain_fns[name](*args), 3)
-            ms = cuda_ms(lambda: originals[name](*args), 5)
-            ms_plain2 = cuda_ms(lambda: plain_fns[name](*args), 3)
-        flops, nbytes = work_fns[name](*args)
-        b_ms, b_by = bound(flops, nbytes)
-        shape = list(args[0].shape)
-        row = {"name": name, "launch": i, "relevance_in": shape, "flops": flops,
-               "bytes": nbytes, "max_abs_err": err, "ms": ms,
-               "plain_ms": min(ms_plain, ms_plain2), "bound_ms": b_ms, "bound_by": b_by}
-        rows.append(row)
-        emit({"phase": "kernel_vs_plain", "batch": B_KERNEL, "K": K, **row})
+    # ---------------------------------------------------------------- 6s
+    specs6 = build_layer_specs(gtzan_6s_config())
+    specs6, params6 = fold_batchnorm(specs6, random_bn_stats(
+        init_params(specs6, seed=0, device="cuda"), seed=1))
+    classes6 = ["metal", "disco", "classical"]
+    rng6 = np.random.default_rng(6)
+    wavs6 = [(rng6.standard_normal((B_SERVE, 96000)) * 0.3).astype(np.float32)
+             for _ in classes6]
+    svc6 = ExplainerService(specs6, params6, LRP_NAME_MAP_GTZAN_6S,
+                            {c: random_orthogonal(10 + i, 128) for i, c in enumerate(classes6)},
+                            K, 33, case="gtzan_6s")
+    svc6.explain(wavs6[0][:2], classes6[0])     # first call: kernels load
+    serve6 = serve_checks(svc6, wavs6, classes6, (B_SERVE, 128, 256),
+                          {"chain_block": 4, "first_layer": 0, "first_block_deep": 1},
+                          "serve_6s_layer33")
+    launches["6s"] = serve6["launches"]
+    emit(serve6)
+    for layer, d, n_blocks in ((26, 128, 3), (19, 100, 2)):
+        svc_l = ExplainerService(specs6, params6, LRP_NAME_MAP_GTZAN_6S,
+                                 {"rock": random_orthogonal(20 + layer, d)}, K, layer,
+                                 case="gtzan_6s")
+        emit(serve_checks(svc_l, wavs6[:1], ["rock"], (B_SERVE, 128, 256),
+                          {"chain_block": n_blocks, "first_layer": 0, "first_block_deep": 1},
+                          f"serve_6s_layer{layer}"))
+        del svc_l
+
+    big6 = (rng6.standard_normal((B_KERNEL_6S, 96000)) * 0.3).astype(np.float32)
+    rows["6s"] = kernel_rows(svc6, big6, classes6[0], ["chain_block"] * 4 + ["first_block_deep"],
+                             B_KERNEL_6S, "6s")
+    torch.cuda.empty_cache()
+    request_phases(svc6, big6, classes6[1], "6s")
 
     kernels = []
     for name in SOURCES:
-        mine = [r for r in rows if r["name"] == name]
+        paths = {}
+        for path, path_rows in rows.items():
+            mine = [r for r in path_rows if r["name"] == name]
+            if not mine:
+                continue
+            paths[path] = {
+                "launches": launches[path][name],
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+                "bound_ms": sum(r["bound_ms"] for r in mine),
+                "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"]}
+        top = max(paths.values(), key=lambda v: v["bound_ms"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": sum(r["bound_ms"] for r in mine),
-            "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": None})
-    del calls, heat
-
-    # ---- one 256-clip request end to end (host readback included), then
-    # the same request stage by stage and under the profiler
-    svc.explain(big, classes[1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    svc.explain(big, classes[1])
-    request_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    svc._dispatch(big, classes[1])
-    torch.cuda.synchronize()
-    device_s = time.perf_counter() - t0
-    emit({"phase": "request", "batch": B_KERNEL, "request_ms": request_s * 1e3,
-          "dispatch_to_sync_ms": device_s * 1e3,
-          "clips_per_sec": B_KERNEL / request_s,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    stages = [staged_request(svc, big, classes[1]) for _ in range(STAGE_REPS)]
-    emit({"phase": "request_stages", "batch": B_KERNEL, "reps": STAGE_REPS,
-          "median_ms": {k: float(np.median([s[k] for s in stages])) for k in stages[0]}})
-    emit({"phase": "request_trace", "batch": B_KERNEL, **traced_request(svc, big, classes[1])})
+            "replaces": TPU_KERNELS[name],
+            "launches": sum(v["launches"] for v in paths.values()),
+            "max_abs_err": max(v["max_abs_err"] for v in paths.values()),
+            "ms": sum(v["ms"] for v in paths.values()),
+            "plain_ms": sum(v["plain_ms"] for v in paths.values()),
+            "bound_ms": sum(v["bound_ms"] for v in paths.values()),
+            "bound_by": top["bound_by"], "library_ms": None, "paths": paths})
 
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -17,7 +17,12 @@
 //
 // Two launches per conv:
 //   gamma_prep   once per (instance, 8x8 tile): both forward convs over all
-//                output channels, writes G to scratch [b, H, W, Co].
+//                output channels, writes G to scratch [b, H, W, Co]. It reads
+//                relu(x): a chain conv's input is a relu output already, and
+//                the deep first block (csrc/first_block_deep.cu) passes the
+//                pre-relu a1. For that block it also zeroes G off the
+//                first-argmax route of the (kh, kw) pool above the conv, so
+//                that the clone-shared route is taken once per instance.
 //   gamma_apply  once per (instance, clone, 8x8 tile): the transposed conv of
 //                R * G over the tile plus a 1-pixel halo, times x, and the
 //                first-argmax pool route of relu(apre) when a pool is below.
@@ -29,6 +34,11 @@
 // f32); each thread keeps OG output channels of one pixel in registers, the
 // input tile (with halo) and a CC-channel slice of the weights sit in shared
 // memory, and the weights are read as warp-wide broadcasts.
+//
+// Channel counts: OG is 16 where it divides the output count, else 20 (the
+// 6s model's 100-channel level: 5 groups, 320 threads), else 8; a block has
+// 64 * C/OG <= 1024 threads. The input channels are staged CC at a time and
+// a short last slice (4 of 100) is zero-filled.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,13 +53,23 @@ __device__ __forceinline__ float stabilize(float z, float eps) {
   return __fadd_rn(z, z >= 0.f ? eps : -eps);
 }
 
+// OG for a level of C channels, or 0 where the kernels take no such count.
+inline int group_of(int C) {
+  if (C > 128) return 0;
+  if (C % 16 == 0) return 16;
+  if (C % 20 == 0) return 20;
+  if (C % 8 == 0) return 8;
+  return 0;
+}
+
 template <int OG>
 __global__ void gamma_prep_kernel(const float* __restrict__ x,
                                   const float* __restrict__ w,     // [9, Ci, 2*Co]
                                   const float* __restrict__ bias,  // [3, Co]
+                                  const float* __restrict__ apre,  // [b, H, W, Co] or null
                                   float* __restrict__ G,           // [b, H, W, Co]
-                                  int H, int W, int Ci, int Co, float inv,
-                                  float stab) {
+                                  int H, int W, int Ci, int Co, int kh, int kw,
+                                  float inv, float stab) {
   extern __shared__ float smem[];
   float* xs = smem;               // [CC][HALO]
   float* ws = smem + CC * HALO;   // [9][CC][2*Co]
@@ -70,13 +90,14 @@ __global__ void gamma_prep_kernel(const float* __restrict__ x,
       const int c = e % CC, q = e / CC;
       const int hh = h0 + q / HW_ - 1, ww = w0 + q % HW_ - 1;
       float v = 0.f;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = xn[((size_t)hh * W + ww) * Ci + c0 + c];
+      if (c0 + c < Ci && hh >= 0 && hh < H && ww >= 0 && ww < W)
+        v = fmaxf(xn[((size_t)hh * W + ww) * Ci + c0 + c], 0.f);
       xs[c * HALO + q] = v;
     }
     for (int e = threadIdx.x; e < 9 * CC * Co2; e += blockDim.x) {
       const int o = e % Co2, q = e / Co2;
-      ws[e] = w[((size_t)(q / CC) * Ci + c0 + q % CC) * Co2 + o];
+      const int c = c0 + q % CC;
+      ws[e] = c < Ci ? w[((size_t)(q / CC) * Ci + c) * Co2 + o] : 0.f;
     }
     __syncthreads();
     for (int t = 0; t < 9; ++t) {
@@ -95,13 +116,27 @@ __global__ void gamma_prep_kernel(const float* __restrict__ x,
   const int h = h0 + py, ww = w0 + px;
   if (h >= H || ww >= W) return;
   float* g = G + (((size_t)n * H + h) * W + ww) * Co + o0;
+  const int wh = h - h % kh, wv = ww - ww % kw, me = (h - wh) * kw + (ww - wv);
+  const float* an = apre != nullptr ? apre + (size_t)n * H * W * Co + o0 : nullptr;
 #pragma unroll
   for (int j = 0; j < OG; ++j) {
     const float b1 = bias[o0 + j], b0 = bias[Co + o0 + j], b2 = bias[2 * Co + o0 + j];
     const float z1 = __fadd_rn(acc1[j], b1);
     const float zt = __fadd_rn(
         __fmul_rn(__fsub_rn(__fadd_rn(z1, acc3[j]), b1), inv), b0);
-    g[j] = zt > 0.f ? __fdiv_rn(1.0f, stabilize(__fadd_rn(z1, b2), stab)) : 0.f;
+    float v = zt > 0.f ? __fdiv_rn(1.0f, stabilize(__fadd_rn(z1, b2), stab)) : 0.f;
+    if (apre != nullptr && v != 0.f) {
+      // first maximum of relu(apre) over the pool window, row-major, strict >
+      int win = 0;
+      float best = -1.f;
+      for (int r = 0; r < kh; ++r)
+        for (int s = 0; s < kw; ++s) {
+          const float a = fmaxf(an[((size_t)(wh + r) * W + wv + s) * Co + j], 0.f);
+          if (a > best) { best = a; win = r * kw + s; }
+        }
+      if (win != me) v = 0.f;
+    }
+    g[j] = v;
   }
 }
 
@@ -134,7 +169,7 @@ __global__ void gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H,
       const int c = e % CC, q = e / CC;
       const int hh = h0 + q / HW_ - 1, ww = w0 + q % HW_ - 1;
       float v = 0.f;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
+      if (c0 + c < Co && hh >= 0 && hh < H && ww >= 0 && ww < W) {
         const size_t i = ((size_t)hh * W + ww) * Co + c0 + c;
         v = __fmul_rn(Rn[i], Gn[i]);
       }
@@ -142,7 +177,8 @@ __global__ void gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H,
     }
     for (int e = threadIdx.x; e < 9 * CC * Ci; e += blockDim.x) {
       const int o = e % Ci, q = e / Ci;
-      ws[e] = wt[((size_t)(q / CC) * Co + c0 + q % CC) * Ci + o];
+      const int c = c0 + q % CC;
+      ws[e] = c < Co ? wt[((size_t)(q / CC) * Co + c) * Ci + o] : 0.f;
     }
     __syncthreads();
     for (int t = 0; t < 9; ++t) {
@@ -193,56 +229,72 @@ cudaError_t set_smem(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
+template <int OG>
+cudaError_t launch_prep(dim3 grid, int threads, size_t bytes, cudaStream_t s,
+                        const float* x, const float* w, const float* bias,
+                        const float* apre, float* G, int H, int W, int Ci, int Co,
+                        int kh, int kw, float inv, float stab) {
+  cudaError_t err = set_smem(gamma_prep_kernel<OG>, bytes);
+  if (err != cudaSuccess) return err;
+  gamma_prep_kernel<OG><<<grid, threads, bytes, s>>>(x, w, bias, apre, G, H, W, Ci, Co,
+                                                     kh, kw, inv, stab);
+  return cudaGetLastError();
+}
+
+template <int OG>
+cudaError_t launch_apply(dim3 grid, int threads, size_t bytes, cudaStream_t s,
+                         const float* R, const float* G, const float* x,
+                         const float* wt, const float* apre, float* out, int K,
+                         int H, int W, int Ci, int Co, int kh, int kw) {
+  cudaError_t err = set_smem(gamma_apply_kernel<OG>, bytes);
+  if (err != cudaSuccess) return err;
+  gamma_apply_kernel<OG><<<grid, threads, bytes, s>>>(R, G, x, wt, apre, out, K, H,
+                                                      W, Ci, Co, kh, kw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Phase 1. x [b,H,W,Ci], w [9,Ci,2Co], bias [3,Co], G [b,H,W,Co].
-// Needs Ci % 8 == 0, Co % 8 == 0, Co <= 128. Returns cudaGetLastError().
+// Phase 1. x [b,H,W,Ci] (read as relu(x)), w [9,Ci,2Co], bias [3,Co],
+// G [b,H,W,Co]; apre [b,H,W,Co] or NULL: G is zeroed off the first-argmax
+// route of relu(apre) over (kh, kw) windows (H % kh == W % kw == 0). Needs
+// group_of(Co) != 0. Returns cudaGetLastError().
 int chain_gamma_prep(const float* x, const float* w, const float* bias,
-                     float* G, int b, int H, int W, int Ci, int Co, float inv,
-                     float stab, void* stream) {
-  const int og = (Co % 16 == 0) ? 16 : 8;
+                     const float* apre, float* G, int b, int H, int W, int Ci,
+                     int Co, int kh, int kw, float inv, float stab, void* stream) {
+  const int og = group_of(Co);
+  if (og == 0) return cudaErrorInvalidValue;
   const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), b);
   const int threads = TP * (Co / og);
   const size_t bytes = sizeof(float) * (CC * HALO + 9 * CC * 2 * Co);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (og == 16) {
-    err = set_smem(gamma_prep_kernel<16>, bytes);
-    if (err != cudaSuccess) return err;
-    gamma_prep_kernel<16><<<grid, threads, bytes, s>>>(x, w, bias, G, H, W, Ci, Co, inv, stab);
-  } else {
-    err = set_smem(gamma_prep_kernel<8>, bytes);
-    if (err != cudaSuccess) return err;
-    gamma_prep_kernel<8><<<grid, threads, bytes, s>>>(x, w, bias, G, H, W, Ci, Co, inv, stab);
-  }
-  return cudaGetLastError();
+  if (og == 16)
+    return launch_prep<16>(grid, threads, bytes, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
+  if (og == 20)
+    return launch_prep<20>(grid, threads, bytes, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
+  return launch_prep<8>(grid, threads, bytes, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
 }
 
 // Phase 2. R [b,K,H,W,Co], G [b,H,W,Co], x [b,H,W,Ci], wt [9,Co,Ci];
 // apre [b,H*kh,W*kw,Ci] or NULL; out [b,K,H,W,Ci] (no pool) or
-// [b,K,H*kh,W*kw,Ci]. Needs Ci % 8 == 0, Co % 8 == 0, Ci <= 128.
+// [b,K,H*kh,W*kw,Ci]. Needs group_of(Ci) != 0.
 int chain_gamma_apply(const float* R, const float* G, const float* x,
                       const float* wt, const float* apre, float* out, int b,
                       int K, int H, int W, int Ci, int Co, int kh, int kw,
                       void* stream) {
-  const int og = (Ci % 16 == 0) ? 16 : 8;
+  const int og = group_of(Ci);
+  if (og == 0) return cudaErrorInvalidValue;
   const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), K, b);
   const int threads = TP * (Ci / og);
   const size_t bytes = sizeof(float) * (CC * HALO + 9 * CC * Ci);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (og == 16) {
-    err = set_smem(gamma_apply_kernel<16>, bytes);
-    if (err != cudaSuccess) return err;
-    gamma_apply_kernel<16><<<grid, threads, bytes, s>>>(R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
-  } else {
-    err = set_smem(gamma_apply_kernel<8>, bytes);
-    if (err != cudaSuccess) return err;
-    gamma_apply_kernel<8><<<grid, threads, bytes, s>>>(R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
-  }
-  return cudaGetLastError();
+  if (og == 16)
+    return launch_apply<16>(grid, threads, bytes, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
+  if (og == 20)
+    return launch_apply<20>(grid, threads, bytes, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
+  return launch_apply<8>(grid, threads, bytes, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
 }
 
 }  // extern "C"

@@ -6,11 +6,13 @@ layer name (``features.N`` / ``classifier.N``, the reference's own names), so
 the LRP engine can walk it as an interpreter. Parameters are a plain dict
 {name: {"weight": tensor, "bias": tensor}}; ``VGG`` wraps the same tensors in
 an ``nn.Module`` whose state_dict keys are ``features.N.weight`` etc.
+BatchNorm layers keep torch's names too: {"weight", "bias", "running_mean",
+"running_var"}, applied in eval mode; ``fold_batchnorm`` merges them into the
+conv or linear layer before them, as the explain path needs.
 
 Layouts: NCHW model input, OIHW conv weights, [out, in] linear weights. The
 ``*_nhwc`` variants serve the conv section of the lower LRP segment, whose
-activations the explain path records channels-last. BatchNorm layers (the 6s
-model) have specs here but no apply yet.
+activations the explain path records channels-last.
 """
 
 from __future__ import annotations
@@ -102,9 +104,13 @@ def build_layer_specs(cfg: VGGConfig) -> list[LayerSpec]:
     return specs
 
 
+BN_EPS = 1e-5            # torch's BatchNorm default, as the JAX package
+
+
 def init_params(specs: Sequence[LayerSpec], seed: int, device="cuda") -> dict:
     """Kaiming-uniform init with ReLU gain (the JAX package's 'he' scheme),
-    drawn from ``np.random.default_rng(seed)``."""
+    drawn from ``np.random.default_rng(seed)``; BatchNorm layers start at
+    scale 1, bias 0, mean 0, var 1."""
     rng = np.random.default_rng(seed)
     params: dict = {}
 
@@ -125,6 +131,13 @@ def init_params(specs: Sequence[LayerSpec], seed: int, device="cuda") -> dict:
             params[spec.name] = {
                 "weight": uniform((fo, fi), np.sqrt(6.0 / fi)),
                 "bias": uniform((fo,), 1.0 / np.sqrt(fi))}
+        elif spec.kind in ("batchnorm", "batchnorm1d"):
+            ch = spec.config["ch"]
+            params[spec.name] = {
+                "weight": torch.ones(ch, device=device),
+                "bias": torch.zeros(ch, device=device),
+                "running_mean": torch.zeros(ch, device=device),
+                "running_var": torch.ones(ch, device=device)}
     return params
 
 
@@ -153,6 +166,16 @@ def maxpool2d_nhwc(x: torch.Tensor, kernel: tuple) -> torch.Tensor:
     return maxpool2d(x.permute(0, 3, 1, 2), kernel).permute(0, 2, 3, 1)
 
 
+def batchnorm(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Eval-mode BatchNorm over dim 1 of NCHW or [b, features] input, in the
+    JAX package's operation order: (x - mean) * (rsqrt(var + BN_EPS) * scale)
+    + bias."""
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    inv = torch.rsqrt(p["running_var"] + BN_EPS)
+    return ((x - p["running_mean"].view(shape)) * (inv * p["weight"]).view(shape)
+            + p["bias"].view(shape))
+
+
 def apply_layer(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Inference-mode apply of one layer, NCHW."""
     kind = spec.kind
@@ -168,6 +191,8 @@ def apply_layer(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
         return maxpool2d(x, spec.config["kernel"])
     if kind == "flatten":
         return x.reshape(x.shape[0], -1)
+    if kind in ("batchnorm", "batchnorm1d"):
+        return batchnorm(x, params[spec.name])
     if kind in ("dropout", "subspacefilter"):
         return x
     if kind == "projection":
@@ -194,6 +219,36 @@ def apply_layer_nhwc(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Te
     if kind == "dropout":
         return x
     raise ValueError(f"apply_layer_nhwc: unsupported kind {kind}")
+
+
+def fold_batchnorm(specs: Sequence[LayerSpec], params: dict):
+    """Fold each BatchNorm into the conv or linear layer before it (the JAX
+    package's fold_batchnorm, in its operation order):
+    factor = scale / sqrt(var + BN_EPS), w' = w * factor,
+    b' = (b - mean) * factor + bias. Returns (specs without the BN layers,
+    params without their entries); layer names are kept, so the rule maps
+    and DRSA layer indices of the folded model still apply."""
+    new_specs: list[LayerSpec] = []
+    new_params = dict(params)
+    prev = None
+    for spec in specs:
+        if spec.kind in ("batchnorm", "batchnorm1d") and prev is not None:
+            bn = params[spec.name]
+            p = dict(new_params[prev.name])
+            factor = bn["weight"] / torch.sqrt(bn["running_var"] + BN_EPS)
+            shape = (-1,) + (1,) * (p["weight"].ndim - 1)
+            p["weight"] = p["weight"] * factor.view(shape)
+            b = p.get("bias")
+            p["bias"] = ((b if b is not None else 0.0) - bn["running_mean"]) * factor + bn["bias"]
+            new_params[prev.name] = p
+            new_params.pop(spec.name)
+            continue
+        if spec.kind in ("conv", "linear"):
+            prev = spec
+        elif spec.kind not in ("batchnorm", "batchnorm1d"):
+            prev = None
+        new_specs.append(spec)
+    return new_specs, new_params
 
 
 def forward(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -227,6 +282,10 @@ class VGG(nn.Module):
                 m = nn.Dropout(c["rate"])
             elif spec.kind == "relu":
                 m = nn.ReLU()
+            elif spec.kind == "batchnorm":
+                m = nn.BatchNorm2d(c["ch"], eps=BN_EPS)
+            elif spec.kind == "batchnorm1d":
+                m = nn.BatchNorm1d(c["ch"], eps=BN_EPS)
             else:
                 raise ValueError(f"VGG: {spec.kind} layers are not ported yet")
             mods[section].append(m)
@@ -236,10 +295,13 @@ class VGG(nn.Module):
     def params(self) -> dict:
         out = {}
         for spec in self.specs:
-            if spec.kind in ("conv", "linear"):
+            if spec.kind in ("conv", "linear", "batchnorm", "batchnorm1d"):
                 section, idx = spec.name.split(".")
                 m = getattr(self, section)[int(idx)]
                 out[spec.name] = {"weight": m.weight, "bias": m.bias}
+                if spec.kind.startswith("batchnorm"):
+                    out[spec.name].update(running_mean=m.running_mean,
+                                          running_var=m.running_var)
         return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

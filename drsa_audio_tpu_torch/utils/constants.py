@@ -91,3 +91,24 @@ LRP_NAME_MAP_GTZAN_6S = [
     ("classifier.4", ("epsilon", {"epsilon": 1e-7})),
     ("classifier.8", ("epsilon", {"epsilon": 1e-7})),
 ]
+
+
+def rescale_gamma(name_map, gamma: float):
+    """Rescale every gamma rule in a name map to a new base value, keeping
+    the per-depth decay pattern (base = the map's largest gamma)."""
+    base = max(kw["gamma"] for _, (rule, kw) in name_map if rule == "gamma")
+    return [
+        (n, (rule, {**kw, "gamma": kw["gamma"] * gamma / base}
+             if rule == "gamma" else kw))
+        for n, (rule, kw) in name_map
+    ]
+
+
+# DRSA extraction layers of the 6 s model: the deep ReLU outputs of the
+# BN-folded layer list (reference getdrsadata.py:119).
+DRSA_LAYERS_GTZAN_6S = [19, 26, 33]
+
+# Subspace dimensionality of the standard 5-block nets at insertion layers
+# [1, 4, 7, 10, 13] (reference cpf.py:260,312).
+SUBSPACE_DIMS_GTZAN = [32, 32, 64, 64, 128]
+SUBSPACE_DIMS_TOY = [8, 8, 16, 16, 16]

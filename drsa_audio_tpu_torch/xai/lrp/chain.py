@@ -4,15 +4,17 @@ port of drsa_audio_tpu.xai.lrp.pallas_chain).
 The chain takes the relevance at the head conv's output ([b, K, h, w, d],
 NHWC, all K concept clones of each instance) down to the input heatmaps
 [b, K, H, W]. It runs one ``chain_block`` per block above the first, each
-covering the block's gamma convs and the max-pool below it, and one
-``first_layer`` for the first block's pool route, relu gate and wsquare/flat
-rule.
+covering the block's gamma convs and the max-pool below it, then the first
+block: ``first_layer`` (pool route, relu gate and wsquare/flat rule) when it
+holds only the first conv (3s, toy), or ``first_block_deep`` (pool route,
+the gamma rule of its second conv, then the same tail) when it holds two
+(the 6s model).
 
-Each of the two functions has a plain PyTorch version beside it
+Each of the three functions has a plain PyTorch version beside it
 (``*_plain``). The wrapper runs the plain version for tensors on the CPU and
-the CUDA kernel (``csrc/chain_block.cu``, ``csrc/first_layer.cu``) for CUDA
-tensors; it never falls back from one to the other. ``LAUNCHES`` counts the
-wrapper calls that launched a kernel.
+the CUDA kernel (``csrc/chain_block.cu``, ``csrc/first_layer.cu``,
+``csrc/first_block_deep.cu``) for CUDA tensors; it never falls back from one
+to the other. ``LAUNCHES`` counts the wrapper calls that launched a kernel.
 
 Layout is plain NHWC: the TPU kernels' column packing [H, W/P, P*C] existed
 only to fill 128-wide vector lanes and is not part of the math.
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 from drsa_audio_tpu_torch.models.vgg import conv2d_same_nhwc
 from drsa_audio_tpu_torch.xai.lrp.rules import stabilize
 
-LAUNCHES = {"chain_block": 0, "first_layer": 0}
+LAUNCHES = {"chain_block": 0, "first_layer": 0, "first_block_deep": 0}
 
 
 def reset_launches() -> None:
@@ -184,12 +186,15 @@ def _lib(name: str):
     if not getattr(lib, "_typed", False):
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "chain_block":
-            lib.chain_gamma_prep.argtypes = [P, P, P, P, I, I, I, I, I, Fl, Fl, P]
+            lib.chain_gamma_prep.argtypes = [P] * 5 + [I] * 7 + [Fl, Fl, P]
             lib.chain_gamma_apply.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
             lib.chain_gamma_prep.restype = lib.chain_gamma_apply.restype = I
-        else:
+        elif name == "first_layer":
             lib.first_layer.argtypes = [P, P, P, P, P, I, I, I, I, I, Fl, P]
             lib.first_layer.restype = I
+        else:
+            lib.first_block_deep.argtypes = [P] * 7 + [I] * 8 + [Fl, P]
+            lib.first_block_deep.restype = I
         lib._typed = True
     return lib
 
@@ -203,8 +208,30 @@ def _check_cuda(name: str, *tensors) -> None:
 
 
 def _raise_on(err: int, name: str) -> None:
+    """Raise for an entry point's return code. The entry points check the
+    channel counts they take themselves and refuse others, before any
+    launch, with cudaErrorInvalidValue (1)."""
+    if err == 1:
+        raise ValueError(f"{name}: the kernel does not take these channel counts "
+                         "or shapes (cudaErrorInvalidValue)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _gamma_prep(x: torch.Tensor, cv: GammaConv, stream,
+                apre: torch.Tensor | None = None, pool: tuple = (1, 1)) -> torch.Tensor:
+    """One chain_gamma_prep launch: G [b, H, W, Co] from relu(x), where x is
+    the conv's input (a relu output in a chain block, the pre-relu a1 in
+    the deep first block); with ``apre``, G is zeroed off the route of the
+    ``pool`` above the conv."""
+    b, H, W, _ = x.shape
+    G = torch.empty((b, H, W, cv.co), device=x.device)
+    _raise_on(_lib("chain_block").chain_gamma_prep(
+        x.data_ptr(), cv.w_prep.data_ptr(), cv.biases.data_ptr(),
+        apre.data_ptr() if apre is not None else None, G.data_ptr(),
+        b, H, W, cv.ci, cv.co, pool[0], pool[1], cv.inv, cv.stab, stream),
+        "chain_gamma_prep")
+    return G
 
 
 def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
@@ -219,17 +246,13 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
     transposed conv per clone, f32 on the FMA units). Design: the
     clone-shared masks are computed once per instance into a scratch G, the
     convT(R * m3) term of the gamma rule is skipped because the relu gate
-    zeroes it, and each thread keeps 8-16 output channels of one pixel in
-    registers over a shared-memory tile with halo."""
+    zeroes it, and each thread keeps 8, 16 or 20 output channels of one
+    pixel in registers over a shared-memory tile with halo."""
     if R.device.type == "cpu":
         return chain_block_plain(R, xs, convs, apre, pool)
     b, K = R.shape[:2]
     _check_cuda("chain_block", R, *xs, *(apre,) if apre is not None else (),
                 *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
-    for cv in convs:
-        if cv.ci % 8 or cv.co % 8 or max(cv.ci, cv.co) > 128:
-            raise ValueError("chain_block: channel counts must be multiples "
-                             "of 8 and at most 128")
     if (pool is not None and pool[0] != 2) or b > 65535:
         raise ValueError("chain_block: pools must be (2, kw); batch at most 65535")
     lib = _lib("chain_block")
@@ -238,11 +261,7 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
         _, H, W, _ = x.shape
         if tuple(R.shape) != (b, K, H, W, cv.co) or x.shape[-1] != cv.ci:
             raise ValueError("chain_block: relevance / activation shapes disagree")
-        G = torch.empty((b, H, W, cv.co), device=R.device)
-        _raise_on(lib.chain_gamma_prep(
-            x.data_ptr(), cv.w_prep.data_ptr(), cv.biases.data_ptr(),
-            G.data_ptr(), b, H, W, cv.ci, cv.co, cv.inv, cv.stab, stream),
-            "chain_gamma_prep")
+        G = _gamma_prep(x, cv, stream)
         last_pool = apre is not None and j == len(convs) - 1
         kh, kw = pool if last_pool else (1, 1)
         if last_pool and tuple(apre.shape) != (b, H * kh, W * kw, cv.ci):
@@ -298,6 +317,69 @@ def first_layer(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tens
         R.data_ptr(), a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(),
         heat.data_ptr(), b, K, H, W, C, fl.stab0, stream), "first_layer")
     LAUNCHES["first_layer"] += 1
+    return heat
+
+
+# ------------------------------------------------------- first_block_deep
+
+def first_block_deep_plain(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
+                           gconv: GammaConv, fl: FirstLayer, pool: tuple) -> torch.Tensor:
+    """Plain version of first_block_deep. R [b, K, H/kh, W/kw, C] at the
+    output of the first block's pool; a1 [b, H, W, C0] the first conv's
+    pre-relu output (the gamma conv's input is relu(a1)); apre [b, H, W, C]
+    the gamma conv's pre-relu output (the pool's input is relu(apre)).
+    Returns heatmaps [b, K, H, W]."""
+    b, K = R.shape[:2]
+    H, W, C0 = a1.shape[1:]
+    mask = route_mask(torch.clamp(apre, min=0.0), pool)
+    s = pool_backward(R, mask[:, None], pool)
+    Rn = chain_block_plain(s, [torch.clamp(a1, min=0.0)], [gconv])
+    s0 = Rn * (relu_gate(a1) / stabilize(fl.z0, fl.stab0))[:, None]
+    heat = F.conv_transpose2d(s0.reshape(b * K, H, W, C0).permute(0, 3, 1, 2),
+                              fl.wm, padding=1)
+    return heat.reshape(b, K, H, W)
+
+
+def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
+                     gconv: GammaConv, fl: FirstLayer, pool: tuple) -> torch.Tensor:
+    """The deep first block: pool route, relu gate and gamma rule of the
+    block's second conv, then the first conv's wsquare/flat tail. Same
+    contract as first_block_deep_plain; CPU tensors take the plain version,
+    CUDA tensors the kernel (one count per call).
+
+    Replaces drsa_audio_tpu/xai/lrp/pallas_chain.py:668
+    _first_block_deep_kernel (launched :1237). Bound on an H100: operations
+    (the gamma conv's two forward convs per instance and one transposed conv
+    per clone at the fine level). Design: two launches. chain_gamma_prep
+    (csrc/chain_block.cu) writes the clone-shared M = G * route once per
+    instance (G = [z_true > 0] / stab(z1 + b2) from relu(a1), route the
+    pool's first-argmax mask of relu(apre)); then csrc/first_block_deep.cu
+    runs one block per (16x16 tile, clone, instance), stages R * M over the
+    tile plus a 2-pixel halo in shared memory, takes the transposed conv
+    over the tile plus a 1-pixel halo in registers (6 pixels x 8 channels a
+    thread), applies relu(a1) and the tail multiplier, and reduces the 3x3
+    tail taps over the channels. The fine relevance never reaches device
+    memory."""
+    if R.device.type == "cpu":
+        return first_block_deep_plain(R, a1, apre, gconv, fl, pool)
+    _check_cuda("first_block_deep", R, a1, apre, fl.z0, fl.taps,
+                gconv.w_prep, gconv.w_apply, gconv.biases)
+    b, K, Hc, Wc, C = R.shape
+    H, W, C0 = a1.shape[1:]
+    kh, kw = pool
+    if (tuple(apre.shape) != (b, H, W, C) or (H, W) != (kh * Hc, kw * Wc)
+            or (gconv.ci, gconv.co) != (C0, C) or tuple(fl.z0.shape) != (H, W, C0)):
+        raise ValueError("first_block_deep: shapes disagree")
+    if b > 65535 or K > 65535:
+        raise ValueError("first_block_deep: batch and clones at most 65535")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
+    M = _gamma_prep(a1, gconv, stream, apre=apre, pool=pool)
+    heat = torch.empty((b, K, H, W), device=R.device)
+    _raise_on(_lib("first_block_deep").first_block_deep(
+        R.data_ptr(), M.data_ptr(), a1.data_ptr(), gconv.w_apply.data_ptr(),
+        fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
+        b, K, H, W, C0, C, kh, kw, fl.stab0, stream), "first_block_deep")
+    LAUNCHES["first_block_deep"] += 1
     return heat
 
 
@@ -385,12 +467,6 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
     conv-section layer (explain_forward_upper); R_nhwc [b, K, h, w, d] at the
     head conv's output. Returns heatmaps [b, K, H, W]."""
     specs, blocks = plan["specs"], plan["blocks"]
-    if len(blocks[0]["convs"]) != 1:
-        raise NotImplementedError(
-            "the deep first block (a gamma conv between the first conv and "
-            "its pool, the 6s model) runs the TPU kernel "
-            "pallas_chain.py:668 _first_block_deep_kernel, which is not "
-            "ported yet")
     R = R_nhwc
     for i in range(len(blocks) - 1, 0, -1):
         blk = blocks[i]
@@ -405,4 +481,9 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
             R = chain_block(R, xs, cws)
     a1 = acts_nhwc[1]
     fl = prep_first_weights(params, specs[0], plan["first_rule"], a1.shape[1:3])
-    return first_layer(R, a1, fl)
+    if len(blocks[0]["convs"]) == 1:
+        return first_layer(R, a1, fl)
+    pi, kh, kw = blocks[0]["pool_above"]
+    ci = blocks[0]["convs"][1]
+    gconv = prep_inner_weights(params, specs[ci], blocks[0]["rules"][ci])
+    return first_block_deep(R, a1, acts_nhwc[pi - 1], gconv, fl, (kh, kw))

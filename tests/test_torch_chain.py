@@ -163,10 +163,10 @@ def test_plan_chain_accepts_and_rejects_like_jax():
     assert tchain.plan_chain(conv_sec, p5, good) is None
 
 
-def test_deep_first_block_is_not_implemented(rng):
+def test_deep_first_block_chain_matches_plain_walk(rng):
     """A gamma conv between the first conv and its pool (the 6s topology)
-    is planned, but its kernel (_first_block_deep_kernel) is not ported: the
-    chain says so instead of taking another path."""
+    is planned and runs through the chain (first_block_deep); the heatmaps
+    agree with the plain tiled walk (fused=False)."""
     cfg = tvgg.VGGConfig(n_filters=(8, 16), n_dense=8, pool_kernels=((2, 4), (2, 2)),
                          dropout=0.0, input_size=(16, 32), n_classes=2,
                          conv_bn=False, dense_bn=False, block_depth=2)
@@ -180,10 +180,10 @@ def test_deep_first_block_is_not_implemented(rng):
     plan = tchain.plan_chain(conv_sec, params, comp, fine_hw=(16, 32))
     assert plan is not None and len(plan["blocks"][0]["convs"]) == 2
     x = t(rng.standard_normal((1, 1, 16, 32)))
-    with pytest.raises(NotImplementedError, match="_first_block_deep_kernel"):
-        texp.subspace_heatmaps(tsp, params, x, comp, 4, class_idx=0)
-    heat, _ = texp.subspace_heatmaps(tsp, params, x, comp, 4, class_idx=0, fused=False)
+    heat, _ = texp.subspace_heatmaps(tsp, params, x, comp, 4, class_idx=0, fused=True)
+    want, _ = texp.subspace_heatmaps(tsp, params, x, comp, 4, class_idx=0, fused=False)
     assert heat.shape == (1, 5, 16, 32) and torch.isfinite(heat).all()
+    assert_close_lrp(heat.numpy(), want.numpy())
 
 
 def test_wrappers_never_fall_back(rng):
@@ -199,4 +199,10 @@ def test_wrappers_never_fall_back(rng):
     with pytest.raises(ValueError, match="GPU"):
         tchain.first_layer(torch.empty((1, 2, 32, 32, 8), device="meta"),
                            torch.empty((1, 64, 64, 8), device="meta"), fl)
-    assert tchain.LAUNCHES == {"chain_block": 0, "first_layer": 0}
+    gc = tchain.prep_inner_weights(params, conv_sec[3], {"gamma": 0.8})
+    fl8 = tchain.prep_first_weights(params, conv_sec[0], ("flat", {}), (8, 8))
+    with pytest.raises(ValueError, match="GPU"):
+        tchain.first_block_deep(torch.empty((1, 2, 4, 4, 8), device="meta"),
+                                torch.empty((1, 8, 8, 8), device="meta"),
+                                torch.empty((1, 8, 8, 8), device="meta"), gc, fl8, (2, 2))
+    assert tchain.LAUNCHES == {"chain_block": 0, "first_layer": 0, "first_block_deep": 0}

@@ -1,5 +1,5 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
-card (TF32 off), at small shapes and the 3s model's widths. Run on a GPU
+card (TF32 off), at small shapes and the 3s and 6s models' widths. Run on a GPU
 host with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``; without a
 card every test here skips.
 
@@ -47,6 +47,12 @@ def _conv(rng, ci, co, dev):
     ([(8, 16)], 8, (2, 2)),            # toy widths
     ([(16, 16), (16, 32)], 8, (2, 4)),  # two convs, a (2,4) pool
     ([(128, 128)], 6, None),           # widest, ragged tile
+    ([(64, 100)], 16, (2, 2)),         # 6s block 2, bottom conv
+    ([(64, 100), (100, 100)], 8, (2, 2)),    # 6s block 2, both convs
+    ([(100, 128), (128, 128)], 8, (2, 2)),   # 6s block 3
+    ([(100, 128)], 6, None),           # 6s block 3, bottom conv, ragged tile
+    ([(128, 128)], 8, (2, 2)),         # 6s block 4
+    ([(100, 100)], 32, None),          # the 6s layer-19 head level
 ])
 def test_chain_block_kernel_matches_plain(cuda, chans, H, pool):
     rng = np.random.default_rng(0)
@@ -66,6 +72,18 @@ def test_chain_block_kernel_matches_plain(cuda, chans, H, pool):
     got = chain.chain_block(R, xs, convs, apre, pool)
     assert chain.LAUNCHES["chain_block"] == n0 + 1
     _close(got, chain.chain_block_plain(R, xs, convs, apre, pool))
+
+
+@pytest.mark.parametrize("ci,co", [(12, 16), (16, 12), (136, 136)])
+def test_chain_block_kernel_refuses_unsupported_counts(cuda, ci, co):
+    rng = np.random.default_rng(0)
+    cv = _conv(rng, ci, co, cuda)
+    x = torch.zeros((1, 8, 8, ci), device=cuda)
+    R = torch.zeros((1, 2, 8, 8, co), device=cuda)
+    n0 = chain.LAUNCHES["chain_block"]
+    with pytest.raises(ValueError, match="channel counts"):
+        chain.chain_block(R, [x], [cv])
+    assert chain.LAUNCHES["chain_block"] == n0
 
 
 @pytest.mark.parametrize("rule,H,C", [("wsquare", 128, 32), ("flat", 64, 8), ("wsquare", 16, 16)])
@@ -88,6 +106,39 @@ def test_first_layer_kernel_matches_plain(cuda, rule, H, C):
     _close(got, chain.first_layer_plain(R, a1, fl))
 
 
+def _deep_inputs(rng, dev, b, K, H, W, C0, C, kw, rule):
+    spec, spec0 = vgg.LayerSpec("conv", "g", {}), vgg.LayerSpec("conv", "c0", {})
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    w3 = t(rng.standard_normal((C, C0, 3, 3)) * np.sqrt(2 / (9 * C0)))
+    b3 = t(rng.standard_normal(C) * 0.05)
+    b3[0] = -50.0                         # all-tied (zero after relu) pool windows
+    gconv = chain.prep_inner_weights({"g": {"weight": w3, "bias": b3}}, spec,
+                                     {"gamma": 0.3, "stabilizer": 1e-7})
+    w0, b0 = t(rng.standard_normal((C0, 1, 3, 3)) * 0.5), t(rng.standard_normal(C0) * 0.1)
+    fl = chain.prep_first_weights({"c0": {"weight": w0, "bias": b0}}, spec0,
+                                  (rule, {"stabilizer": 1e-7}), (H, W))
+    mel = t(rng.standard_normal((b, 1, H, W)))
+    a1 = torch.nn.functional.conv2d(mel, w0, b0, padding=1).permute(0, 2, 3, 1).contiguous()
+    a1[0, :2, :3] = 0.0                   # relu ties
+    apre = vgg.conv2d_same_nhwc(torch.clamp(a1, min=0.0), w3, b3).contiguous()
+    R = t(rng.standard_normal((b, K, H // 2, W // kw, C)))
+    return R, a1, apre, gconv, fl, (2, kw)
+
+
+@pytest.mark.parametrize("H,W,C0,C,kw,rule", [
+    (16, 32, 8, 16, 4, "wsquare"),     # small
+    (18, 20, 16, 8, 2, "flat"),        # ragged tiles, (2,2) pool
+    (32, 64, 32, 64, 4, "wsquare"),
+    (128, 256, 64, 64, 4, "wsquare"),  # the 6s widths
+])
+def test_first_block_deep_kernel_matches_plain(cuda, H, W, C0, C, kw, rule):
+    args = _deep_inputs(np.random.default_rng(2), cuda, 2, 4, H, W, C0, C, kw, rule)
+    n0 = chain.LAUNCHES["first_block_deep"]
+    got = chain.first_block_deep(*args)
+    assert chain.LAUNCHES["first_block_deep"] == n0 + 1
+    _close(got, chain.first_block_deep_plain(*args))
+
+
 def test_service_on_card_matches_plain_path(cuda):
     from drsa_audio_tpu_torch.serving import ExplainerService
     from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
@@ -99,7 +150,36 @@ def test_service_on_card_matches_plain_path(cuda):
     wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
     chain.reset_launches()
     got, _ = svc._dispatch(wavs, "pop")
-    assert chain.LAUNCHES == {"chain_block": 3, "first_layer": 1}
+    counts = {"chain_block": 3, "first_layer": 1, "first_block_deep": 0}
+    assert chain.LAUNCHES == counts
     want, _ = svc._dispatch(wavs, "pop", fused=False)
-    assert chain.LAUNCHES == {"chain_block": 3, "first_layer": 1}
+    assert chain.LAUNCHES == counts
     _close(got, want)
+
+
+@pytest.mark.parametrize("layer,d,n_blocks", [(33, 128, 4), (19, 100, 2)])
+def test_6s_service_on_card_matches_plain_path(cuda, layer, d, n_blocks):
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN_6S
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    specs, params = vgg.fold_batchnorm(*_6s_model())
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN_6S,
+                           {"jazz": random_orthogonal(0, d)}, 4, layer, case="gtzan_6s")
+    wavs = (np.random.default_rng(2).standard_normal((2, 96000)) * 0.3).astype(np.float32)
+    chain.reset_launches()
+    got, _ = svc._dispatch(wavs, "jazz")
+    counts = {"chain_block": n_blocks, "first_layer": 0, "first_block_deep": 1}
+    assert chain.LAUNCHES == counts
+    want, _ = svc._dispatch(wavs, "jazz", fused=False)
+    assert chain.LAUNCHES == counts
+    assert got.shape == (2, 5, 128, 256)
+    _close(got, want)
+
+
+def _6s_model():
+    """The 6s layer list and seeded random weights with random BN
+    statistics (so the fold is not the identity), as chip_smoke.py draws
+    them."""
+    from chip_smoke import random_bn_stats
+    specs = vgg.build_layer_specs(vgg.gtzan_6s_config())
+    return specs, random_bn_stats(vgg.init_params(specs, 0, device="cuda"), seed=1)

@@ -19,7 +19,8 @@ from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal as t_ortho
 from test_torch_util import both_models, signed_permutation, t
 
 TABLES = ["CLASS_IDX_MAPPER", "CLASS_IDX_MAPPER_TOY", "AUDIO_PARAMS",
-          "LRP_NAME_MAP_GTZAN", "LRP_NAME_MAP_TOY", "LRP_NAME_MAP_GTZAN_6S"]
+          "LRP_NAME_MAP_GTZAN", "LRP_NAME_MAP_TOY", "LRP_NAME_MAP_GTZAN_6S",
+          "DRSA_LAYERS_GTZAN_6S", "SUBSPACE_DIMS_GTZAN", "SUBSPACE_DIMS_TOY"]
 
 
 @pytest.mark.parametrize("name", TABLES)
