@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the three CUDA kernels
+1. Prints the card's name and power limit, builds the four CUDA kernels
    (csrc/*.cu, one nvcc each, in parallel).
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
@@ -21,21 +21,32 @@
    the same request (upload, front-end, forward + upper LRP, lower segment,
    readback, sort; medians of STAGE_REPS), and traces one request with
    torch.profiler for the device time of each kernel and the idle share.
+5m. The merged-tail path (the switch chain.CHAIN_MERGED set here, the
+   DRSA_CHAIN_MERGED variable cleared at start): three 32-clip 3s requests
+   with the counters set to 0 just before and read just after (chain_block
+   and merged_tail once each, first_layer never, per request), the checks
+   of 2 and one request against the default multi-kernel path; one 32-clip
+   toy request (8/16 channels, 64x64 mels) the same; then the two launches
+   of one 256-clip request held against their plain versions and timed,
+   and that request end to end, by stages and traced, as 4 and 5, with the
+   default request's peak device memory beside its own.
 6. The GTZAN-6s flagship at full width (filters 64/64/100/128/128, 6 s clips
    of 96,000 samples, 128x256 mels; seeded random weights and BatchNorm
    statistics, folded): three requests of 32 clips at DRSA layer 33 with the
    counters set to 0 just before and read just after (chain_block 4 times,
    first_block_deep once, first_layer never, per request), the same checks
    as 2; then one 32-clip request each at layers 26 and 19 (chain_block 3
-   and 2 times).
+   and 2 times). One layer-33 request with the merged-tail switch on must
+   launch merged_tail 0 times: the 6s model does not merge.
 7. Records the five kernel launches of one 64-clip layer-33 request and
    holds and times each against its plain version, as 4.
 8. Times one 64-clip 6s request end to end, by stages, and traced, as 5.
 
 The kernels line gives, for each kernel, its numbers per path under
-"paths" (3s at batch 256, 6s at batch 64, per request: the launches of one
-request summed) and at its top level their sums over the paths (launches:
-the counts of the served requests of 2 and 6; max_abs_err: the largest).
+"paths" (3s and 3s_merged at batch 256, 6s at batch 64, per request: the
+launches of one request summed) and at its top level their sums over the
+paths (launches: the counts of the served requests of 2, 5m and 6;
+max_abs_err: the largest).
 
 Tolerance for every comparison: rtol 1e-4, atol 1e-5 * max|plain| (the JAX
 package's own fused-vs-tiled bound). Prints JSON lines; the line before the
@@ -44,6 +55,7 @@ Exits non-zero, printing no result, where CUDA is unavailable.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -58,11 +70,13 @@ TPU_KERNELS = {
     "chain_block": "drsa_audio_tpu/xai/lrp/pallas_chain.py:624",
     "first_layer": "drsa_audio_tpu/xai/lrp/pallas_chain.py:709",
     "first_block_deep": "drsa_audio_tpu/xai/lrp/pallas_chain.py:668",
+    "merged_tail": "drsa_audio_tpu/xai/lrp/pallas_chain.py:746",
 }
 SOURCES = {
     "chain_block": "drsa_audio_tpu_torch/csrc/chain_block.cu",
     "first_layer": "drsa_audio_tpu_torch/csrc/first_layer.cu",
     "first_block_deep": "drsa_audio_tpu_torch/csrc/first_block_deep.cu",
+    "merged_tail": "drsa_audio_tpu_torch/csrc/merged_tail.cu",
 }
 
 
@@ -137,6 +151,22 @@ def first_block_deep_work(R, a1, apre, gconv, fl, pool):
     nbytes = 4.0 * (R.numel() + a1.numel() + apre.numel() + gconv.w_prep.numel()
                     + gconv.w_apply.numel() + fl.z0.numel() + fl.taps.numel()
                     + b * k * H * W)
+    return flops, nbytes
+
+
+def merged_tail_work(R, xs, convs, apres, a1, fl):
+    """Per merged conv the two forward convs of the clone-shared prep and one
+    transposed conv per clone (its zero term skipped), then the 3x3 tail
+    per clone; R, the convs' inputs and weights, the pool inputs, a1, z0
+    and the taps read once, the K maps written once."""
+    b, k = R.shape[:2]
+    H, W, C = a1.shape[1:]
+    flops = 2.0 * k * b * H * W * C * 9
+    nbytes = 4.0 * (R.numel() + a1.numel() + fl.z0.numel() + fl.taps.numel() + b * k * H * W
+                    + sum(a.numel() for a in apres))
+    for x, cv in zip(xs, convs):
+        flops += 2.0 * (2 + k) * b * x.shape[1] * x.shape[2] * cv.ci * cv.co * 9
+        nbytes += 4.0 * (x.numel() + cv.w_prep.numel() + cv.w_apply.numel())
     return flops, nbytes
 
 
@@ -236,11 +266,13 @@ def traced_request(svc, wavs, class_name: str) -> dict:
             "device_idle_share": 1.0 - busy / total, "top": rows[:10]}
 
 
-def serve_checks(svc, wavs, class_names, shape, counts, name) -> dict:
+def serve_checks(svc, wavs, class_names, shape, counts, name, vs_default=False) -> dict:
     """Serve one request per class with every launch counter set to 0 just
     before and read just after; check the launch counts, the heatmaps'
     shape, finiteness and standard = sum of the subspace maps, then one
-    request's unsorted heatmaps against the plain tiled walk."""
+    request's unsorted heatmaps against the plain tiled walk and, with
+    ``vs_default``, against the default multi-kernel chain (the merged-tail
+    switch off for that request)."""
     import torch
     from drsa_audio_tpu_torch.xai.lrp import chain
 
@@ -249,7 +281,7 @@ def serve_checks(svc, wavs, class_names, shape, counts, name) -> dict:
     outs = [svc.explain(w, c) for w, c in zip(wavs, class_names)]
     seconds = time.time() - t0
     launches = dict(chain.LAUNCHES)
-    want_counts = {k: v * len(class_names) for k, v in counts.items()}
+    want_counts = {k: counts.get(k, 0) * len(class_names) for k in SOURCES}
     if launches != want_counts:
         raise AssertionError(f"{name}: launch counts {launches}, expected {want_counts}")
     b, h, w = shape
@@ -262,16 +294,25 @@ def serve_checks(svc, wavs, class_names, shape, counts, name) -> dict:
     got, _ = svc._dispatch(wavs[0], class_names[0])
     want, _ = svc._dispatch(wavs[0], class_names[0], fused=False)
     torch.cuda.synchronize()
-    return {"phase": name, "requests": len(class_names), "batch": b, "seconds": seconds,
-            "launches": launches,
-            "max_abs_err_vs_plain": check_close(f"{name} request vs plain path", got, want),
-            "max_abs_plain": want.abs().max().item()}
+    out = {"phase": name, "requests": len(class_names), "batch": b, "seconds": seconds,
+           "launches": launches,
+           "max_abs_err_vs_plain": check_close(f"{name} request vs plain path", got, want),
+           "max_abs_plain": want.abs().max().item()}
+    if vs_default:
+        merged, chain.CHAIN_MERGED = chain.CHAIN_MERGED, False
+        try:
+            default, _ = svc._dispatch(wavs[0], class_names[0])
+        finally:
+            chain.CHAIN_MERGED = merged
+        out["max_abs_err_vs_default"] = check_close(f"{name} request vs default chain",
+                                                    got, default)
+    return out
 
 
 def phase_tag(path: str) -> str:
     """Suffix of a path's phase names; the 3s phases keep their names from
-    before the 6s path was added."""
-    return "" if path == "3s" else "_" + path
+    before the other paths were added."""
+    return {"3s": "", "3s_merged": "_merged"}.get(path, "_" + path)
 
 
 def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
@@ -285,7 +326,7 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
     originals = {n: getattr(chain, n) for n in names}
     plain_fns = {n: getattr(chain, n + "_plain") for n in names}
     work_fns = {"chain_block": chain_block_work, "first_layer": first_layer_work,
-                "first_block_deep": first_block_deep_work}
+                "first_block_deep": first_block_deep_work, "merged_tail": merged_tail_work}
     calls = []
 
     def recorder(name):
@@ -327,9 +368,10 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
     return rows
 
 
-def request_phases(svc, wavs, class_name, path) -> None:
+def request_phases(svc, wavs, class_name, path, **beside) -> float:
     """One request end to end (host readback included), then the same
-    request stage by stage and under the profiler."""
+    request stage by stage and under the profiler. ``beside`` is emitted
+    with the first line. Returns the request's peak device memory, GB."""
     import torch
 
     batch = len(wavs)
@@ -344,15 +386,16 @@ def request_phases(svc, wavs, class_name, path) -> None:
     svc._dispatch(wavs, class_name)
     torch.cuda.synchronize()
     device_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
     emit({"phase": "request" + phase_tag(path), "batch": batch, "request_ms": request_s * 1e3,
           "dispatch_to_sync_ms": device_s * 1e3,
-          "clips_per_sec": batch / request_s,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "clips_per_sec": batch / request_s, "peak_mem_gb": peak, **beside})
     stages = [staged_request(svc, wavs, class_name) for _ in range(STAGE_REPS)]
     emit({"phase": "request_stages" + phase_tag(path), "batch": batch, "reps": STAGE_REPS,
           "median_ms": {k: float(np.median([s[k] for s in stages])) for k in stages[0]}})
     emit({"phase": "request_trace" + phase_tag(path), "batch": batch,
           **traced_request(svc, wavs, class_name)})
+    return peak
 
 
 def random_bn_stats(params: dict, seed: int) -> dict:
@@ -379,13 +422,20 @@ def main() -> int:
         return 2
     from drsa_audio_tpu_torch.models.projection import insert_projection
     from drsa_audio_tpu_torch.models.vgg import (
-        build_layer_specs, fold_batchnorm, gtzan_3s_config, gtzan_6s_config, init_params)
+        build_layer_specs, fold_batchnorm, gtzan_3s_config, gtzan_6s_config, init_params,
+        toy_config)
     from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
     from drsa_audio_tpu_torch.serving import ExplainerService
     from drsa_audio_tpu_torch.utils import nvcc
-    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN, LRP_NAME_MAP_GTZAN_6S
+    from drsa_audio_tpu_torch.utils.constants import (
+        LRP_NAME_MAP_GTZAN, LRP_NAME_MAP_GTZAN_6S, LRP_NAME_MAP_TOY)
     from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
     from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    # the merged-tail switch is this script's own: the module flag below
+    os.environ.pop("DRSA_CHAIN_MERGED", None)
+    chain.CHAIN_MERGED = False
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -415,7 +465,7 @@ def main() -> int:
     # the main path: three requests, counters read around them only
     svc.explain(wavs[0], classes[0])            # first call: kernels load
     serve = serve_checks(svc, wavs, classes, (B_SERVE, 128, 128),
-                         {"chain_block": 3, "first_layer": 1, "first_block_deep": 0}, "serve")
+                         {"chain_block": 3, "first_layer": 1}, "serve")
     launches = {"3s": serve["launches"]}
     emit(serve)
 
@@ -452,7 +502,28 @@ def main() -> int:
     big = (rng.standard_normal((B_KERNEL, 48000)) * 0.3).astype(np.float32)
     rows = {"3s": kernel_rows(svc, big, classes[0], ["chain_block"] * 3 + ["first_layer"],
                               B_KERNEL, "3s")}
-    request_phases(svc, big, classes[1], "3s")
+    peak_3s = request_phases(svc, big, classes[1], "3s")
+
+    # ------------------------------------------------- 3s and toy, merged tail
+    chain.CHAIN_MERGED = True
+    merged_counts = {"chain_block": 1, "merged_tail": 1}
+    serve_m = serve_checks(svc, wavs, classes, (B_SERVE, 128, 128), merged_counts,
+                           "serve_merged", vs_default=True)
+    launches["3s_merged"] = serve_m["launches"]
+    emit(serve_m)
+    specs_t = build_layer_specs(toy_config())
+    svc_t = ExplainerService(specs_t, init_params(specs_t, seed=0, device="cuda"),
+                             LRP_NAME_MAP_TOY, {"class2": random_orthogonal(30, 16)}, K, 10,
+                             case="toy")
+    wav_t = (rng.standard_normal((B_SERVE, 16000)) * 0.3).astype(np.float32)
+    emit(serve_checks(svc_t, [wav_t], ["class2"], (B_SERVE, 64, 64), merged_counts,
+                      "serve_toy_merged", vs_default=True))
+    del svc_t
+    rows["3s_merged"] = kernel_rows(svc, big, classes[0], ["chain_block", "merged_tail"],
+                                    B_KERNEL, "3s_merged")
+    torch.cuda.empty_cache()
+    request_phases(svc, big, classes[1], "3s_merged", peak_mem_gb_default=peak_3s)
+    chain.CHAIN_MERGED = False
     del svc, big, params
     torch.cuda.empty_cache()
 
@@ -469,16 +540,19 @@ def main() -> int:
                             K, 33, case="gtzan_6s")
     svc6.explain(wavs6[0][:2], classes6[0])     # first call: kernels load
     serve6 = serve_checks(svc6, wavs6, classes6, (B_SERVE, 128, 256),
-                          {"chain_block": 4, "first_layer": 0, "first_block_deep": 1},
-                          "serve_6s_layer33")
+                          {"chain_block": 4, "first_block_deep": 1}, "serve_6s_layer33")
     launches["6s"] = serve6["launches"]
     emit(serve6)
+    chain.CHAIN_MERGED = True                   # the 6s model does not merge
+    emit(serve_checks(svc6, wavs6[:1], classes6[:1], (B_SERVE, 128, 256),
+                      {"chain_block": 4, "first_block_deep": 1}, "serve_6s_layer33_switch_on"))
+    chain.CHAIN_MERGED = False
     for layer, d, n_blocks in ((26, 128, 3), (19, 100, 2)):
         svc_l = ExplainerService(specs6, params6, LRP_NAME_MAP_GTZAN_6S,
                                  {"rock": random_orthogonal(20 + layer, d)}, K, layer,
                                  case="gtzan_6s")
         emit(serve_checks(svc_l, wavs6[:1], ["rock"], (B_SERVE, 128, 256),
-                          {"chain_block": n_blocks, "first_layer": 0, "first_block_deep": 1},
+                          {"chain_block": n_blocks, "first_block_deep": 1},
                           f"serve_6s_layer{layer}"))
         del svc_l
 

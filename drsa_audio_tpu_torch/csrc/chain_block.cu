@@ -43,15 +43,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lrp_common.cuh"
+
 namespace {
 
 constexpr int TH = 8, TW = 8, TP = TH * TW;
 constexpr int HW_ = TW + 2, HALO = (TH + 2) * (TW + 2);
 constexpr int CC = 8;
-
-__device__ __forceinline__ float stabilize(float z, float eps) {
-  return __fadd_rn(z, z >= 0.f ? eps : -eps);
-}
 
 // OG for a level of C channels, or 0 where the kernels take no such count.
 inline int group_of(int C) {
@@ -94,11 +92,7 @@ __global__ void gamma_prep_kernel(const float* __restrict__ x,
         v = fmaxf(xn[((size_t)hh * W + ww) * Ci + c0 + c], 0.f);
       xs[c * HALO + q] = v;
     }
-    for (int e = threadIdx.x; e < 9 * CC * Co2; e += blockDim.x) {
-      const int o = e % Co2, q = e / Co2;
-      const int c = c0 + q % CC;
-      ws[e] = c < Ci ? w[((size_t)(q / CC) * Ci + c) * Co2 + o] : 0.f;
-    }
+    lrp::stage_taps<CC>(ws, w, c0, Ci, Co2);
     __syncthreads();
     for (int t = 0; t < 9; ++t) {
       const float* xr = xs + (py + t / 3) * HW_ + px + t % 3;
@@ -124,18 +118,10 @@ __global__ void gamma_prep_kernel(const float* __restrict__ x,
     const float z1 = __fadd_rn(acc1[j], b1);
     const float zt = __fadd_rn(
         __fmul_rn(__fsub_rn(__fadd_rn(z1, acc3[j]), b1), inv), b0);
-    float v = zt > 0.f ? __fdiv_rn(1.0f, stabilize(__fadd_rn(z1, b2), stab)) : 0.f;
-    if (apre != nullptr && v != 0.f) {
-      // first maximum of relu(apre) over the pool window, row-major, strict >
-      int win = 0;
-      float best = -1.f;
-      for (int r = 0; r < kh; ++r)
-        for (int s = 0; s < kw; ++s) {
-          const float a = fmaxf(an[((size_t)(wh + r) * W + wv + s) * Co + j], 0.f);
-          if (a > best) { best = a; win = r * kw + s; }
-        }
-      if (win != me) v = 0.f;
-    }
+    float v = zt > 0.f ? __fdiv_rn(1.0f, lrp::stabilize(__fadd_rn(z1, b2), stab)) : 0.f;
+    if (apre != nullptr && v != 0.f &&
+        lrp::route(an + ((size_t)wh * W + wv) * Co + j, kh, kw, W * Co, Co) != me)
+      v = 0.f;
     g[j] = v;
   }
 }
@@ -175,11 +161,7 @@ __global__ void gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H,
       }
       ss[c * HALO + q] = v;
     }
-    for (int e = threadIdx.x; e < 9 * CC * Ci; e += blockDim.x) {
-      const int o = e % Ci, q = e / Ci;
-      const int c = c0 + q % CC;
-      ws[e] = c < Co ? wt[((size_t)(q / CC) * Co + c) * Ci + o] : 0.f;
-    }
+    lrp::stage_taps<CC>(ws, wt, c0, Co, Ci);
     __syncthreads();
     for (int t = 0; t < 9; ++t) {
       const float* sr = ss + (py + t / 3) * HW_ + px + t % 3;
@@ -208,13 +190,8 @@ __global__ void gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H,
 #pragma unroll
   for (int j = 0; j < OG; ++j) {
     const float val = __fmul_rn(xp[j], acc[j]);
-    int win = 0;
-    float best = -1.f;
-    for (int r = 0; r < kh; ++r)
-      for (int s = 0; s < kw; ++s) {
-        const float a = fmaxf(an[(((size_t)h * kh + r) * Wf + ww * kw + s) * Ci + o0 + j], 0.f);
-        if (a > best) { best = a; win = r * kw + s; }
-      }
+    const int win =
+        lrp::route(an + (((size_t)h * kh) * Wf + ww * kw) * Ci + o0 + j, kh, kw, Wf * Ci, Ci);
     for (int r = 0; r < kh; ++r)
       for (int s = 0; s < kw; ++s)
         on[(((size_t)h * kh + r) * Wf + ww * kw + s) * Ci + o0 + j] =
@@ -222,19 +199,12 @@ __global__ void gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H,
   }
 }
 
-template <typename Kern>
-cudaError_t set_smem(Kern kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <int OG>
 cudaError_t launch_prep(dim3 grid, int threads, size_t bytes, cudaStream_t s,
                         const float* x, const float* w, const float* bias,
                         const float* apre, float* G, int H, int W, int Ci, int Co,
                         int kh, int kw, float inv, float stab) {
-  cudaError_t err = set_smem(gamma_prep_kernel<OG>, bytes);
+  cudaError_t err = lrp::set_smem(gamma_prep_kernel<OG>, bytes);
   if (err != cudaSuccess) return err;
   gamma_prep_kernel<OG><<<grid, threads, bytes, s>>>(x, w, bias, apre, G, H, W, Ci, Co,
                                                      kh, kw, inv, stab);
@@ -246,7 +216,7 @@ cudaError_t launch_apply(dim3 grid, int threads, size_t bytes, cudaStream_t s,
                          const float* R, const float* G, const float* x,
                          const float* wt, const float* apre, float* out, int K,
                          int H, int W, int Ci, int Co, int kh, int kw) {
-  cudaError_t err = set_smem(gamma_apply_kernel<OG>, bytes);
+  cudaError_t err = lrp::set_smem(gamma_apply_kernel<OG>, bytes);
   if (err != cudaSuccess) return err;
   gamma_apply_kernel<OG><<<grid, threads, bytes, s>>>(R, G, x, wt, apre, out, K, H,
                                                       W, Ci, Co, kh, kw);

@@ -25,8 +25,9 @@
 // shared memory; each thread accumulates OG output channels of a column of
 // PY pixels of the tile plus a 1-pixel halo (18x18 pixels: 18 columns x 3
 // strips x C0/OG channel groups), so every staged value and every weight it
-// loads feeds PY*OG or 3*PY multiply-adds. Then each thread forms s0 for its
-// pixels and channels and reduces them against the 9 tail taps into shared
+// loads feeds PY*OG or 3*PY multiply-adds (lrp::convt_column). Then each
+// thread forms s0 for its pixels and channels and reduces them against the 9
+// tail taps into shared
 // memory, and the tile's pixels sum the 3x3 neighbourhood over the groups.
 // Zeros outside the image reproduce SAME padding. The fine relevance Rn
 // never reaches device memory.
@@ -42,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lrp_common.cuh"
+
 namespace {
 
 constexpr int TH = 16, TW = 16;                 // output tile
@@ -52,10 +55,6 @@ constexpr int SW = TW + 4, NS = (TH + 4) * SW;  // R*M region: tile + 2 halo
 constexpr int CC = 8;                           // C channels per slice
 constexpr int OG = 8;                           // output channels per thread
 constexpr int MAX_THREADS = TPG * 64 / OG;
-
-__device__ __forceinline__ float stabilize(float z, float eps) {
-  return __fadd_rn(z, z >= 0.f ? eps : -eps);
-}
 
 __global__ void __launch_bounds__(MAX_THREADS)
 first_block_deep_kernel(const float* __restrict__ R,      // [b, K, H/kh, W/kw, C]
@@ -102,32 +101,9 @@ first_block_deep_kernel(const float* __restrict__ R,      // [b, K, H/kh, W/kw, 
       }
       ss[c * NS + r] = v;
     }
-    for (int e = threadIdx.x; e < 9 * CC * C0; e += blockDim.x) {
-      const int o = e % C0, q = e / C0;
-      const int c = c0 + q % CC;
-      ws[e] = c < C ? wt[((size_t)(q / CC) * C + c) * C0 + o] : 0.f;
-    }
+    lrp::stage_taps<CC>(ws, wt, c0, C, C0);
     __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < CC; ++c) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        float sv[PY + 2];
-#pragma unroll
-        for (int r = 0; r < PY + 2; ++r) sv[r] = ss[c * NS + (y0 + r) * SW + x + dx];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const float4* wr =
-              reinterpret_cast<const float4*>(ws + ((dy * 3 + dx) * CC + c) * C0 + o0);
-          const float4 wa = wr[0], wb = wr[1];
-          const float w8[OG] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int i = 0; i < PY; ++i)
-#pragma unroll
-            for (int j = 0; j < OG; ++j) acc[i][j] = fmaf(sv[i + dy], w8[j], acc[i][j]);
-        }
-      }
-    }
+    lrp::convt_column<PY, CC, SW, NS>(acc, ss, ws, C0, y0, x, o0);
   }
   __syncthreads();                    // u reuses the staging buffers
 
@@ -147,8 +123,8 @@ first_block_deep_kernel(const float* __restrict__ R,      // [b, K, H/kh, W/kw, 
       for (int j = 0; j < OG; ++j) {
         const float a = ap[j];
         const float rn = __fmul_rn(fmaxf(a, 0.f), acc[i][j]);
-        const float gate = a > 0.f ? 1.f : (a == 0.f ? 0.5f : 0.f);
-        const float s0 = __fmul_rn(rn, __fdiv_rn(gate, stabilize(zp[j], stab0)));
+        const float s0 =
+            __fmul_rn(rn, __fdiv_rn(lrp::relu_gate(a), lrp::stabilize(zp[j], stab0)));
 #pragma unroll
         for (int t = 0; t < 9; ++t) part[t] = fmaf(s0, tp[t * C0 + o0 + j], part[t]);
       }
@@ -186,8 +162,7 @@ int first_block_deep(const float* R, const float* M, const float* a1,
   const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), K, b);
   const size_t stage = CC * NS + 9 * CC * C0, red = ng * 9 * NR;
   const size_t bytes = sizeof(float) * (9 * C0 + (stage > red ? stage : red));
-  cudaError_t err = cudaFuncSetAttribute(
-      first_block_deep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = lrp::set_smem(first_block_deep_kernel, bytes);
   if (err != cudaSuccess) return err;
   first_block_deep_kernel<<<grid, TPG * ng, bytes, (cudaStream_t)stream>>>(
       R, M, a1, wt, z0, taps, heat, K, H, W, C0, C, kh, kw, stab0);

@@ -27,15 +27,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lrp_common.cuh"
+
 namespace {
 
 constexpr int FB = 8;   // output rows per block
 constexpr int CC = 8;   // channels per shared-memory slice
 constexpr int PX = 4;   // output pixels per thread
-
-__device__ __forceinline__ float stabilize(float z, float eps) {
-  return __fadd_rn(z, z >= 0.f ? eps : -eps);
-}
 
 __global__ void first_layer_kernel(const float* __restrict__ R,     // [b,K,H/2,W/2,C]
                                    const float* __restrict__ a1,    // [b,H,W,C]
@@ -65,20 +63,10 @@ __global__ void first_layer_kernel(const float* __restrict__ R,     // [b,K,H/2,
       float v = 0.f;
       if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
         const float* base = an + ((size_t)(hh & ~1) * W + (ww & ~1)) * C + c0 + c;
-        const float a[4] = {base[0], base[C], base[(size_t)W * C],
-                            base[(size_t)W * C + C]};
-        int win = 0;
-        float best = fmaxf(a[0], 0.f);
-        for (int i = 1; i < 4; ++i) {
-          const float r = fmaxf(a[i], 0.f);
-          if (r > best) { best = r; win = i; }
-        }
-        const int me = (hh & 1) * 2 + (ww & 1);
-        if (me == win) {
-          const float am = a[me];
-          const float gate = am > 0.f ? 1.f : (am == 0.f ? 0.5f : 0.f);
+        float am;
+        if (lrp::route2x2(base, W * C, C, &am) == (hh & 1) * 2 + (ww & 1)) {
           const float f = __fdiv_rn(
-              gate, stabilize(z0[((size_t)hh * W + ww) * C + c0 + c], stab0));
+              lrp::relu_gate(am), lrp::stabilize(z0[((size_t)hh * W + ww) * C + c0 + c], stab0));
           v = __fmul_rn(Rn[((size_t)(hh >> 1) * Wc + (ww >> 1)) * C + c0 + c], f);
         }
       }
@@ -88,14 +76,7 @@ __global__ void first_layer_kernel(const float* __restrict__ R,     // [b,K,H/2,
 #pragma unroll
     for (int i = 0; i < PX; ++i) {
       const int p = threadIdx.x + i * blockDim.x;
-      const int py = p / W, px = p % W;
-      for (int c = 0; c < CC; ++c) {
-        const float* sr = s + (c * SH + py) * SW + px;
-        const float* tr = tp + c0 + c;
-#pragma unroll
-        for (int t = 0; t < 9; ++t)
-          acc[i] = fmaf(sr[(t / 3) * SW + t % 3], tr[t * C], acc[i]);
-      }
+      acc[i] = lrp::tail_taps<CC>(acc[i], s + (p / W) * SW + p % W, SH * SW, SW, tp, C, c0);
     }
   }
   float* hn = heat + (((size_t)n * K + k) * H + h0) * W;
@@ -116,11 +97,8 @@ int first_layer(const float* R, const float* a1, const float* z0,
   const dim3 grid(K, H / FB, b);
   const int threads = FB * W / PX;
   const size_t bytes = sizeof(float) * (CC * (FB + 2) * (W + 2) + 9 * C);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        first_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = lrp::set_smem(first_layer_kernel, bytes);
+  if (err != cudaSuccess) return err;
   first_layer_kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(
       R, a1, z0, taps, heat, K, H, W, C, stab0);
   return cudaGetLastError();

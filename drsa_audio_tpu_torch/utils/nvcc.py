@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on first
 use into ``build/kernels/lib<name>-<hash>.so`` under the repository root (the
-hash covers the source and the flags, so an edited source rebuilds). Nothing
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source or header rebuilds). Nothing
 here runs at import time. ``build`` starts one nvcc per missing library, all
 at once, and raises if any of them fails: there is no fallback.
 """
@@ -39,7 +40,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

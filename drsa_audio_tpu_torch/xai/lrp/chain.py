@@ -8,13 +8,16 @@ covering the block's gamma convs and the max-pool below it, then the first
 block: ``first_layer`` (pool route, relu gate and wsquare/flat rule) when it
 holds only the first conv (3s, toy), or ``first_block_deep`` (pool route,
 the gamma rule of its second conv, then the same tail) when it holds two
-(the 6s model).
+(the 6s model). With the merged-tail switch on (``CHAIN_MERGED`` or
+``DRSA_CHAIN_MERGED=1``, off by default) the 3s and toy models instead run
+blocks nb-2 .. 0 and the first-layer tail as one ``merged_tail``.
 
-Each of the three functions has a plain PyTorch version beside it
+Each of the four functions has a plain PyTorch version beside it
 (``*_plain``). The wrapper runs the plain version for tensors on the CPU and
 the CUDA kernel (``csrc/chain_block.cu``, ``csrc/first_layer.cu``,
-``csrc/first_block_deep.cu``) for CUDA tensors; it never falls back from one
-to the other. ``LAUNCHES`` counts the wrapper calls that launched a kernel.
+``csrc/first_block_deep.cu``, ``csrc/merged_tail.cu``) for CUDA tensors; it
+never falls back from one to the other. ``LAUNCHES`` counts the wrapper
+calls that launched a kernel.
 
 Layout is plain NHWC: the TPU kernels' column packing [H, W/P, P*C] existed
 only to fill 128-wide vector lanes and is not part of the math.
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
@@ -33,7 +37,19 @@ import torch.nn.functional as F
 from drsa_audio_tpu_torch.models.vgg import conv2d_same_nhwc
 from drsa_audio_tpu_torch.xai.lrp.rules import stabilize
 
-LAUNCHES = {"chain_block": 0, "first_layer": 0, "first_block_deep": 0}
+LAUNCHES = {"chain_block": 0, "first_layer": 0, "first_block_deep": 0, "merged_tail": 0}
+
+# Merged-tail switch: run blocks nb-2 .. 0 and the first-layer tail in one
+# kernel (merged_tail), so that the per-clone relevances between them never
+# reach device memory. Off by default, as in the JAX package; the
+# DRSA_CHAIN_MERGED environment variable (0/1) overrides it when set.
+CHAIN_MERGED = os.environ.get("DRSA_CHAIN_MERGED", "0") == "1"
+
+
+def _chain_merged() -> bool:
+    """The switch, read at call time: the environment wins when set."""
+    v = os.environ.get("DRSA_CHAIN_MERGED")
+    return v == "1" if v is not None else CHAIN_MERGED
 
 
 def reset_launches() -> None:
@@ -192,9 +208,12 @@ def _lib(name: str):
         elif name == "first_layer":
             lib.first_layer.argtypes = [P, P, P, P, P, I, I, I, I, I, Fl, P]
             lib.first_layer.restype = I
-        else:
+        elif name == "first_block_deep":
             lib.first_block_deep.argtypes = [P] * 7 + [I] * 8 + [Fl, P]
             lib.first_block_deep.restype = I
+        else:
+            lib.merged_tail.argtypes = [P] * 11 + [I] * 8 + [Fl, P]
+            lib.merged_tail.restype = I
         lib._typed = True
     return lib
 
@@ -383,6 +402,83 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     return heat
 
 
+# ------------------------------------------------------------ merged_tail
+
+def merged_tail_plain(R: torch.Tensor, xs: Sequence[torch.Tensor],
+                      convs: Sequence[GammaConv], apres: Sequence[torch.Tensor],
+                      a1: torch.Tensor, fl: FirstLayer) -> torch.Tensor:
+    """Plain version of merged_tail. R [b, K, h, w, Co] at the top merged
+    conv's output; xs the merged convs' recorded inputs and convs their
+    weights, top-down; apres the pre-relu inputs of the (2,2) pools between
+    them, top-down (one fewer than the convs); a1 [b, H, W, C] the first
+    conv's pre-relu output. Returns heatmaps [b, K, H, W]."""
+    for j, (x, cv) in enumerate(zip(xs, convs)):
+        if j < len(apres):
+            R = chain_block_plain(R, [x], [cv], apres[j], (2, 2))
+        else:
+            R = chain_block_plain(R, [x], [cv])
+    return first_layer_plain(R, a1, fl)
+
+
+def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
+                convs: Sequence[GammaConv], apres: Sequence[torch.Tensor],
+                a1: torch.Tensor, fl: FirstLayer) -> torch.Tensor:
+    """Blocks nb-2 .. 0 of the chain and the first-layer tail. Same contract
+    as merged_tail_plain; CPU tensors take the plain version, CUDA tensors
+    the kernel (csrc/merged_tail.cu, one count per call). The kernel takes
+    one or two merged convs (3s and toy at DRSA layer 7 or 10) at the 3s
+    (32, 64) or toy (8, 16) channel counts, and raises for others.
+
+    Replaces drsa_audio_tpu/xai/lrp/pallas_chain.py:746 _merged_tail_kernel
+    (launched :1155). Bound on an H100: operations (per merged conv two
+    forward convs per instance and one transposed conv per clone; the 3x3
+    tail per clone). Design: chain_gamma_prep writes the clone-shared
+    multipliers once per instance, then one block per (32x32 heatmap tile,
+    clone, instance) walks the merged convs with a halo that grows one pixel
+    per level on the way up and recomputes the overlap (see the source).
+
+    Allocates, on the device: G [b, h, w, Co] of the top conv (two merged
+    convs only), M [b, 2h, 2w, C] of the bottom conv with the pool route
+    between the two folded in (G alone for one conv), and the heatmaps
+    [b, K, H, W]. No per-clone relevance between the merged levels is
+    written to device memory."""
+    if R.device.type == "cpu":
+        return merged_tail_plain(R, xs, convs, apres, a1, fl)
+    _check_cuda("merged_tail", R, a1, fl.z0, fl.taps, *xs, *apres,
+                *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
+    m = len(convs)
+    if m not in (1, 2) or len(xs) != m or len(apres) != m - 1:
+        raise ValueError("merged_tail: the kernel takes one or two merged convs")
+    b, K = R.shape[:2]
+    H, W, C = a1.shape[1:]
+    top, bottom = convs[0], convs[-1]
+    ok = (H % (2 * m) == 0 and W % (2 * m) == 0 and tuple(fl.z0.shape) == (H, W, C)
+          and bottom.ci == C and tuple(xs[-1].shape) == (b, H // 2, W // 2, C)
+          and tuple(R.shape) == (b, K, H // (2 * m), W // (2 * m), top.co))
+    if m == 2:
+        ok = ok and (top.ci == bottom.co and tuple(xs[0].shape) == (b, H // 4, W // 4, top.ci)
+                     and tuple(apres[0].shape) == (b, H // 2, W // 2, bottom.co))
+    if not ok:
+        raise ValueError("merged_tail: relevance / activation shapes disagree")
+    if b > 65535 or K > 65535:
+        raise ValueError("merged_tail: batch and clones at most 65535")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
+    if m == 2:
+        G = _gamma_prep(xs[0], top, stream)
+        M = _gamma_prep(xs[1], bottom, stream, apres[0], (2, 2))
+        top_ptrs = (G.data_ptr(), xs[0].data_ptr(), top.w_apply.data_ptr())
+    else:
+        M = _gamma_prep(xs[0], bottom, stream)
+        top_ptrs = (None, None, None)           # not read with one merged conv
+    heat = torch.empty((b, K, H, W), device=R.device)
+    _raise_on(_lib("merged_tail").merged_tail(
+        R.data_ptr(), *top_ptrs, M.data_ptr(), xs[-1].data_ptr(), bottom.w_apply.data_ptr(),
+        a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
+        b, K, H, W, C, bottom.co, top.co, m, fl.stab0, stream), "merged_tail")
+    LAUNCHES["merged_tail"] += 1
+    return heat
+
+
 # ------------------------------------------------------------- host plan
 
 def plan_chain(conv_section: Sequence, params: dict, composite,
@@ -461,14 +557,49 @@ def plan_chain(conv_section: Sequence, params: dict, composite,
     return {"specs": specs, "blocks": blocks, "first_rule": first_rule}
 
 
+def _lane_pack(params: dict, specs, blk) -> int:
+    """The JAX plan's packing factor of a block, pow2_floor(128 // the
+    widest map it operates on): the conv inputs, or the first conv's output
+    for block 0."""
+    widest = max(params[specs[ci].name]["weight"].shape[0 if ci == 0 else 1]
+                 for ci in blk["convs"])
+    p = 1
+    while p * 2 <= 128 // widest:
+        p *= 2
+    return p
+
+
+def mergeable(plan, params: dict) -> bool:
+    """Whether the merged tail can take blocks nb-2 .. 0 (the JAX package's
+    predicate, pallas_chain.py:1066-1072): at least three blocks, one conv
+    in each of blocks 0 .. nb-2, and (2,2) pools between them. The JAX
+    predicate also asks every merged block to pack its lanes at block 0's
+    factor, a TPU layout condition; it is kept as the same test on channel
+    counts so that the port merges exactly the models the JAX package
+    merges (3s and toy at layers 7 and 10, not 6s). The JAX condition on its
+    first-layer recompute flag has no counterpart: the port has no such
+    variant."""
+    specs, blocks = plan["specs"], plan["blocks"]
+    M = len(blocks) - 2
+    p0 = _lane_pack(params, specs, blocks[0])
+    return (M >= 1
+            and all(len(blocks[i]["convs"]) == 1 for i in range(M + 1))
+            and all(_lane_pack(params, specs, blocks[i]) == p0 for i in range(1, M + 1))
+            and all(blocks[i]["pool_above"][2] == 2 for i in range(M)))
+
+
 def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tensor,
                               K: int) -> torch.Tensor:
     """Run the chain. acts_nhwc: the recorded NHWC input of every
     conv-section layer (explain_forward_upper); R_nhwc [b, K, h, w, d] at the
-    head conv's output. Returns heatmaps [b, K, H, W]."""
+    head conv's output. Returns heatmaps [b, K, H, W]. With the merged-tail
+    switch on and a mergeable plan, the block walk stops above block
+    M = nb - 2 and merged_tail takes the rest."""
     specs, blocks = plan["specs"], plan["blocks"]
+    M = len(blocks) - 2
+    merged = _chain_merged() and mergeable(plan, params)
     R = R_nhwc
-    for i in range(len(blocks) - 1, 0, -1):
+    for i in range(len(blocks) - 1, M if merged else 0, -1):
         blk = blocks[i]
         convs_td = list(reversed(blk["convs"]))
         cws = [prep_inner_weights(params, specs[ci], blk["rules"][ci])
@@ -481,6 +612,15 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
             R = chain_block(R, xs, cws)
     a1 = acts_nhwc[1]
     fl = prep_first_weights(params, specs[0], plan["first_rule"], a1.shape[1:3])
+    if merged:
+        # the merged convs top-down, and below each but the last the pool
+        # above the next block down, its route from that block's pre-relu
+        # conv output
+        convs_td = [(bi, blocks[bi]["convs"][0]) for bi in range(M, 0, -1)]
+        cws = [prep_inner_weights(params, specs[ci], blocks[bi]["rules"][ci])
+               for bi, ci in convs_td]
+        apres = [acts_nhwc[blocks[bi]["pool_above"][0] - 1] for bi in range(M - 1, 0, -1)]
+        return merged_tail(R, [acts_nhwc[ci] for _, ci in convs_td], cws, apres, a1, fl)
     if len(blocks[0]["convs"]) == 1:
         return first_layer(R, a1, fl)
     pi, kh, kw = blocks[0]["pool_above"]

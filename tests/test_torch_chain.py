@@ -205,4 +205,12 @@ def test_wrappers_never_fall_back(rng):
         tchain.first_block_deep(torch.empty((1, 2, 4, 4, 8), device="meta"),
                                 torch.empty((1, 8, 8, 8), device="meta"),
                                 torch.empty((1, 8, 8, 8), device="meta"), gc, fl8, (2, 2))
-    assert tchain.LAUNCHES == {"chain_block": 0, "first_layer": 0, "first_block_deep": 0}
+    c6 = tchain.prep_inner_weights(params, conv_sec[6], {"gamma": 0.8})
+    with pytest.raises(ValueError, match="GPU"):
+        tchain.merged_tail(torch.empty((1, 2, 2, 2, 16), device="meta"),
+                           [torch.empty((1, 2, 2, 8), device="meta"),
+                            torch.empty((1, 4, 4, 8), device="meta")], [c6, gc],
+                           [torch.empty((1, 4, 4, 8), device="meta")],
+                           torch.empty((1, 8, 8, 8), device="meta"), fl8)
+    assert tchain.LAUNCHES == {"chain_block": 0, "first_layer": 0, "first_block_deep": 0,
+                               "merged_tail": 0}

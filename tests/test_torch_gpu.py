@@ -150,7 +150,7 @@ def test_service_on_card_matches_plain_path(cuda):
     wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
     chain.reset_launches()
     got, _ = svc._dispatch(wavs, "pop")
-    counts = {"chain_block": 3, "first_layer": 1, "first_block_deep": 0}
+    counts = {"chain_block": 3, "first_layer": 1, "first_block_deep": 0, "merged_tail": 0}
     assert chain.LAUNCHES == counts
     want, _ = svc._dispatch(wavs, "pop", fused=False)
     assert chain.LAUNCHES == counts
@@ -168,12 +168,81 @@ def test_6s_service_on_card_matches_plain_path(cuda, layer, d, n_blocks):
     wavs = (np.random.default_rng(2).standard_normal((2, 96000)) * 0.3).astype(np.float32)
     chain.reset_launches()
     got, _ = svc._dispatch(wavs, "jazz")
-    counts = {"chain_block": n_blocks, "first_layer": 0, "first_block_deep": 1}
+    counts = {"chain_block": n_blocks, "first_layer": 0, "first_block_deep": 1,
+              "merged_tail": 0}
     assert chain.LAUNCHES == counts
     want, _ = svc._dispatch(wavs, "jazz", fused=False)
     assert chain.LAUNCHES == counts
     assert got.shape == (2, 5, 128, 256)
     _close(got, want)
+
+
+def _merged_inputs(rng, dev, b, K, H, W, C, C6, m, rule):
+    """merged_tail's arguments: m merged convs (conv 6 C -> C6 above conv 3
+    C -> C), pools with all-tied windows, a1 with relu ties."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    convs = [_conv(rng, C, C6, dev), _conv(rng, C, C, dev)][2 - m:]
+    xs = [t(np.maximum(rng.standard_normal((b, H // 4, W // 4, C)), 0)),
+          t(np.maximum(rng.standard_normal((b, H // 2, W // 2, C)), 0))][2 - m:]
+    apre = rng.standard_normal((b, H // 2, W // 2, C))
+    apre[0, :2, :2] = -1.0                # an all-tied (zero after relu) window
+    apres = [t(apre)][:m - 1]
+    spec = vgg.LayerSpec("conv", "c0", {})
+    w0, b0 = t(rng.standard_normal((C, 1, 3, 3)) * 0.5), t(rng.standard_normal(C) * 0.1)
+    fl = chain.prep_first_weights({"c0": {"weight": w0, "bias": b0}}, spec,
+                                  (rule, {"stabilizer": 1e-7}), (H, W))
+    a1 = rng.standard_normal((b, H, W, C))
+    a1[0, :2, :4] = 0.0                   # relu ties and an all-tied window
+    R = rng.standard_normal((b, K, H // (2 * m), W // (2 * m), convs[0].co))
+    return t(R), xs, convs, apres, t(a1), fl
+
+
+@pytest.mark.parametrize("H,W,C,C6,m,rule", [
+    (128, 128, 32, 64, 2, "wsquare"),   # the 3s widths, DRSA layer 10
+    (64, 64, 8, 16, 2, "flat"),         # the toy widths
+    (40, 72, 32, 64, 2, "flat"),        # ragged tiles
+    (128, 128, 32, 64, 1, "wsquare"),   # one merged conv (layer 7)
+    (36, 20, 8, 16, 1, "flat"),         # one merged conv, ragged
+])
+def test_merged_tail_kernel_matches_plain(cuda, H, W, C, C6, m, rule):
+    args = _merged_inputs(np.random.default_rng(3), cuda, 2, 4, H, W, C, C6, m, rule)
+    n0 = chain.LAUNCHES["merged_tail"]
+    got = chain.merged_tail(*args)
+    assert chain.LAUNCHES["merged_tail"] == n0 + 1
+    _close(got, chain.merged_tail_plain(*args))
+
+
+def test_merged_tail_kernel_refuses_unsupported_counts(cuda):
+    args = _merged_inputs(np.random.default_rng(3), cuda, 1, 2, 32, 32, 16, 32, 2, "flat")
+    n0 = chain.LAUNCHES["merged_tail"]
+    with pytest.raises(ValueError, match="channel counts"):
+        chain.merged_tail(*args)
+    assert chain.LAUNCHES["merged_tail"] == n0
+
+
+@pytest.mark.parametrize("layer", [10, 7])
+def test_service_merged_on_card_matches_default_path(cuda, monkeypatch, layer):
+    """The 3s service with the merged-tail switch on: one chain_block and one
+    merged_tail launch per request (two merged convs at layer 10, one at
+    layer 7), heatmaps equal to the default multi-kernel path and to the
+    plain walk."""
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    monkeypatch.delenv("DRSA_CHAIN_MERGED", raising=False)
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    params = vgg.init_params(specs, 0, device="cuda")
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN,
+                           {"pop": random_orthogonal(0, 64)}, 4, layer)
+    wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
+    want, _ = svc._dispatch(wavs, "pop")
+    monkeypatch.setattr(chain, "CHAIN_MERGED", True)
+    chain.reset_launches()
+    got, _ = svc._dispatch(wavs, "pop")
+    assert chain.LAUNCHES == {"chain_block": 1, "first_layer": 0, "first_block_deep": 0,
+                              "merged_tail": 1}
+    _close(got, want)
+    _close(got, svc._dispatch(wavs, "pop", fused=False)[0])
 
 
 def _6s_model():
