@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the four CUDA kernels
+1. Prints the card's name and power limit, builds the six CUDA kernels
    (csrc/*.cu, one nvcc each, in parallel).
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
@@ -41,15 +41,35 @@
 7. Records the five kernel launches of one 64-clip layer-33 request and
    holds and times each against its plain version, as 4.
 8. Times one 64-clip 6s request end to end, by stages, and traced, as 5.
+9. The shared-denominator path (subspace_heatmaps with
+   shared_denominators=True after the service's peak_normalize and logmel,
+   signed-permutation U): three 32-clip 3s requests with the counters set
+   to 0 just before each and read just after (gamma_nonneg 3 times, no
+   chain kernel), finite heatmaps, standard = sum of the subspace maps; the
+   shared walk below the filter on the card against a CPU copy of its own
+   recorded inputs (strict), and the request against the default chain on
+   the same mels by subspace relevances and heatmap correlation (loose);
+   the three launches of one 256-clip request held against the plain
+   version and timed, that request's lower segment and peak memory
+   beside the default path's, and the request traced. Then one 32-clip 6s layer-33 request
+   (gamma_nonneg 9 times), its checks, and its nine launches held and timed.
+10. The log-mel kernel (fused_logmel) on the peak-normalised waveforms of
+   the 256-clip 3s, 64-clip 6s and 32-clip toy requests: launch count,
+   error against the plain version, and the kernel's, the plain version's
+   and the service's matmul-DFT logmel's times beside the bound.
 
 The kernels line gives, for each kernel, its numbers per path under
-"paths" (3s and 3s_merged at batch 256, 6s at batch 64, per request: the
-launches of one request summed) and at its top level their sums over the
-paths (launches: the counts of the served requests of 2, 5m and 6;
-max_abs_err: the largest).
+"paths" (3s, 3s_merged and 3s_shared at batch 256, 6s at batch 64,
+6s_shared at batch 32, per request: the launches of one request summed;
+frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
+batches of 10) and at its top level their sums over the paths (launches:
+the counts of the served requests of 2, 5m, 6 and 9 and the calls of 10;
+max_abs_err: the largest). The log-mel row also carries the matmul-DFT
+logmel's time.
 
 Tolerance for every comparison: rtol 1e-4, atol 1e-5 * max|plain| (the JAX
-package's own fused-vs-tiled bound). Prints JSON lines; the line before the
+package's own fused-vs-tiled bound); for the log-mel, rtol 1e-4, atol 1e-4
+in log10 units (the JAX package's Pallas log-mel test). Prints JSON lines; the line before the
 last is nvidia-smi's name and power limit, the last is the status line.
 Exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -71,12 +91,17 @@ TPU_KERNELS = {
     "first_layer": "drsa_audio_tpu/xai/lrp/pallas_chain.py:709",
     "first_block_deep": "drsa_audio_tpu/xai/lrp/pallas_chain.py:668",
     "merged_tail": "drsa_audio_tpu/xai/lrp/pallas_chain.py:746",
+    "gamma_nonneg": "drsa_audio_tpu/xai/lrp/pallas_gamma.py:49",
+    "logmel": "drsa_audio_tpu/ops/pallas_frontend.py:34",
 }
+CHAIN_KERNELS = ("chain_block", "first_layer", "first_block_deep", "merged_tail")
 SOURCES = {
     "chain_block": "drsa_audio_tpu_torch/csrc/chain_block.cu",
     "first_layer": "drsa_audio_tpu_torch/csrc/first_layer.cu",
     "first_block_deep": "drsa_audio_tpu_torch/csrc/first_block_deep.cu",
     "merged_tail": "drsa_audio_tpu_torch/csrc/merged_tail.cu",
+    "gamma_nonneg": "drsa_audio_tpu_torch/csrc/gamma_nonneg.cu",
+    "logmel": "drsa_audio_tpu_torch/csrc/logmel.cu",
 }
 
 
@@ -84,9 +109,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def check_close(name: str, got, want) -> float:
+def check_close(name: str, got, want, atol=None) -> float:
+    """rtol 1e-4, atol 1e-5 * max|want| unless ``atol`` is given."""
     err = (got - want).abs().max().item()
-    atol = 1e-5 * want.abs().max().item()
+    atol = 1e-5 * want.abs().max().item() if atol is None else atol
     bad = ((got - want).abs() > atol + 1e-4 * want.abs()).sum().item()
     if bad:
         raise AssertionError(f"{name}: {bad} of {want.numel()} elements outside "
@@ -110,6 +136,50 @@ def cuda_ms(fn, reps: int) -> float:
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counter to 0."""
+    from drsa_audio_tpu_torch.ops import fused_frontend
+    from drsa_audio_tpu_torch.xai.lrp import chain, fused_gamma
+    for mod in (chain, fused_gamma, fused_frontend):
+        mod.reset_launches()
+
+
+def launch_counts() -> dict:
+    from drsa_audio_tpu_torch.ops import fused_frontend
+    from drsa_audio_tpu_torch.xai.lrp import chain, fused_gamma
+    return {**chain.LAUNCHES, **fused_gamma.LAUNCHES, **fused_frontend.LAUNCHES}
+
+
+def gamma_nonneg_work(x, R, w, b, K, **_):
+    """The forward pair once per instance (2*b*H*W*9*Ci*2Co) and one
+    transposed conv per clone over Co channels (2*K*b*H*W*9*Co*Ci): the
+    masks m1 = [z_true > 0] and m3 = [z_true < 0] are disjoint, so each
+    relevance entry meets one of the two weight sets only. x, R and the
+    weights read once, R_in written once."""
+    n, ci, H, W = x.shape
+    co = w.shape[0]
+    flops = 2.0 * n * H * W * 9 * ci * 2 * co + 2.0 * K * n * H * W * 9 * co * ci
+    nbytes = 4.0 * (x.numel() + R.numel() + w.numel() + co + K * n * ci * H * W)
+    return flops, nbytes
+
+
+def logmel_work(wav, cfg):
+    """The least work the function needs per kept frame: the window, a real
+    FFT (2.5 * n_fft * log2 n_fft, half a complex FFT's 5 N log2 N; the
+    kernel's dense cos/sin products do about 65 times more at n_fft 800),
+    the magnitude, the filterbank's nonzeros (2 each) and the log epilogue.
+    The waveform read once, the window and the filterbank's nonzeros read
+    once, the log-mels written once."""
+    from drsa_audio_tpu_torch.ops.mel import mel_filterbank
+    n_freq = cfg.n_fft // 2 + 1
+    nnz = int(np.count_nonzero(mel_filterbank(n_freq, cfg.n_mels, cfg.sample_rate)))
+    frames = wav.shape[0] * cfg.width
+    per_frame = (cfg.n_fft + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 4.0 * n_freq
+                 + 2.0 * nnz + 3.0 * cfg.n_mels)
+    nbytes = 4.0 * (wav.numel() + cfg.n_fft + nnz + frames * cfg.n_mels)
+    return frames * per_frame, nbytes
 
 
 def chain_block_work(R, xs, convs, apre=None, pool=None):
@@ -238,18 +308,19 @@ def staged_request(svc, wavs, class_name: str) -> dict:
     return out
 
 
-def traced_request(svc, wavs, class_name: str) -> dict:
-    """One request under torch.profiler: the device time of each kernel or
-    copy (events on the device only, so no host op's share of them is
-    counted twice), the ten largest, and the device's busy and idle share of
-    the request's host-clock time."""
+def traced_request(run) -> dict:
+    """One request (``run()``, which returns once the device is done) under
+    torch.profiler: the device time of each kernel or copy (events on the
+    device only, so no host op's share of them is counted twice), the ten
+    largest, and the device's busy and idle share of the request's
+    host-clock time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.explain(wavs, class_name)
+        run()
         total = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
@@ -276,11 +347,11 @@ def serve_checks(svc, wavs, class_names, shape, counts, name, vs_default=False) 
     import torch
     from drsa_audio_tpu_torch.xai.lrp import chain
 
-    chain.reset_launches()
+    reset_counts()
     t0 = time.time()
     outs = [svc.explain(w, c) for w, c in zip(wavs, class_names)]
     seconds = time.time() - t0
-    launches = dict(chain.LAUNCHES)
+    launches = launch_counts()
     want_counts = {k: counts.get(k, 0) * len(class_names) for k in SOURCES}
     if launches != want_counts:
         raise AssertionError(f"{name}: launch counts {launches}, expected {want_counts}")
@@ -322,7 +393,7 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
     import torch
     from drsa_audio_tpu_torch.xai.lrp import chain
 
-    names = list(SOURCES)
+    names = list(CHAIN_KERNELS)
     originals = {n: getattr(chain, n) for n in names}
     plain_fns = {n: getattr(chain, n + "_plain") for n in names}
     work_fns = {"chain_block": chain_block_work, "first_layer": first_layer_work,
@@ -394,8 +465,218 @@ def request_phases(svc, wavs, class_name, path, **beside) -> float:
     emit({"phase": "request_stages" + phase_tag(path), "batch": batch, "reps": STAGE_REPS,
           "median_ms": {k: float(np.median([s[k] for s in stages])) for k in stages[0]}})
     emit({"phase": "request_trace" + phase_tag(path), "batch": batch,
-          **traced_request(svc, wavs, class_name)})
+          **traced_request(lambda: svc.explain(wavs, class_name))})
     return peak
+
+
+def shared_dispatch(svc, wavs, class_name, U, shared=True):
+    """One request through subspace_heatmaps on the service's model, with
+    the service's front-end (peak_normalize, logmel) and class, the
+    projection U, and the shared-denominator walk (``shared``) or the
+    default chain. Returns (heatmaps, mels, specs, output mask)."""
+    import torch
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.ops.frontend import logmel, peak_normalize
+    from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
+    cfg = svc.config
+    onehot = torch.zeros(svc.n_classes, device="cuda")
+    onehot[svc.mapper[class_name]] = 1.0
+    mask = lambda lg: lg * onehot[None, :]                           # noqa: E731
+    with torch.inference_mode():
+        x = torch.as_tensor(np.asarray(wavs, np.float32), device="cuda")
+        mels = logmel(peak_normalize(x), cfg)[:, None]
+        sp = insert_projection(svc.specs, svc.layer_idx, U, K,
+                               input_size=(cfg.n_mels, cfg.width))
+        heat, _ = subspace_heatmaps(sp, svc.params, mels, svc.composite, K,
+                                    output_mask=mask, shared_denominators=shared)
+    return heat, mels, sp, mask
+
+
+def serve_shared(svc, wavs, class_names, U, n_gamma, name, strict_clips=8) -> dict:
+    """The shared-denominator path: one request per class, every launch
+    counter set to 0 just before each and read just after (gamma_nonneg
+    ``n_gamma`` times, no other kernel); finite heatmaps, standard = sum of
+    the subspace maps. Then, on the first request, the strict check: the
+    shared walk below the filter fed the card's own recorded NCHW
+    activations and R_filter (its first ``strict_clips`` clips), on the
+    card (the kernel) and on a CPU copy (the plain rule), at the LRP
+    tolerance; and the loose check against the default chain on the same
+    mels: subspace relevances at rtol 1e-4 and heatmap correlation >=
+    0.9999 (the NCHW and NHWC forwards round differently)."""
+    import torch
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.xai.explain import explain_forward_upper, explain_lower
+    from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
+
+    counts, first = [], None
+    t0 = time.time()
+    for w, c in zip(wavs, class_names):
+        reset_counts()
+        heat, mels, sp, mask = shared_dispatch(svc, w, c, U)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = {k: (n_gamma if k == "gamma_nonneg" else 0) for k in SOURCES}
+        if got != want:
+            raise AssertionError(f"{name}: launch counts {got}, expected {want}")
+        counts.append(got)
+        b, _, h, wd = heat.shape
+        assert heat.shape[1] == K + 1 and torch.isfinite(heat).all()
+        total = heat[:, 1:].sum(dim=1)
+        if ((heat[:, 0] - total).abs() > 1e-6 * total.abs().max() + 1e-5 * total.abs()).any():
+            raise AssertionError(f"{name}: standard map is not the sum of the subspace maps")
+        if first is None:
+            first = (heat, mels, sp, mask)
+        else:
+            del heat, mels
+    seconds = time.time() - t0
+    heat, mels, sp, mask = first
+    with torch.inference_mode():
+        default, _ = subspace_heatmaps(sp, svc.params, mels, svc.composite, K, output_mask=mask)
+        rel, rel_d = heat[:, 1:].sum(dim=(-2, -1)), default[:, 1:].sum(dim=(-2, -1))
+        rel_err = check_close(f"{name} subspace relevances vs default chain", rel, rel_d,
+                              atol=1e-6 * rel_d.abs().max().item())
+        corr = torch.corrcoef(torch.stack([heat.flatten(), default.flatten()]))[0, 1].item()
+        if not corr >= 0.9999:
+            raise AssertionError(f"{name}: heatmap correlation {corr} with the default chain")
+        n = strict_clips
+        R_f, acts, _ = explain_forward_upper(sp, svc.params, mels[:n], svc.composite,
+                                             output_mask=mask, nhwc=False)
+        got = explain_lower(sp, svc.params, acts, R_f, svc.composite, K,
+                            shared_denominators=True, nhwc=False)
+        p_cpu = {k: {n2: v.cpu() for n2, v in d.items()} for k, d in svc.params.items()}
+        sp_cpu = insert_projection(svc.specs, svc.layer_idx, U.cpu(), K,
+                                   input_size=tuple(mels.shape[-2:]))
+        want = explain_lower(sp_cpu, p_cpu, [a.cpu() for a in acts], R_f.cpu(), svc.composite,
+                             K, shared_denominators=True, nhwc=False)
+        strict = check_close(f"{name} shared walk, card vs CPU", got.cpu(), want)
+    return {"phase": name, "requests": len(class_names), "batch": b, "seconds": seconds,
+            "launches": {k: sum(c[k] for c in counts) for k in SOURCES},
+            "max_abs_err_card_vs_cpu": strict, "max_abs_cpu": want.abs().max().item(),
+            "strict_clips": n, "relevance_max_abs_err_vs_default": rel_err,
+            "heatmap_corr_vs_default": corr}
+
+
+def shared_kernel_rows(svc, wavs, class_name, U, expected, path) -> list:
+    """Record the gamma_nonneg launches of one shared-path request, hold each
+    against its plain version on the recorded inputs, and time both with
+    CUDA events beside the bound, as kernel_rows."""
+    import torch
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+
+    kernel, plain = fused_gamma.gamma_nonneg_folded, fused_gamma.gamma_nonneg_folded_plain
+    calls = []
+
+    def recorder(*args, **kwargs):
+        calls.append((args, kwargs))
+        return kernel(*args, **kwargs)
+    fused_gamma.gamma_nonneg_folded = recorder
+    try:
+        heat, _, _, _ = shared_dispatch(svc, wavs, class_name, U)
+    finally:
+        fused_gamma.gamma_nonneg_folded = kernel
+    torch.cuda.synchronize()
+    assert torch.isfinite(heat).all()
+    del heat
+    if len(calls) != expected:
+        raise AssertionError(f"{path}: recorded {len(calls)} gamma_nonneg launches")
+    rows = []
+    for i, (args, kw) in enumerate(calls):
+        with torch.inference_mode():
+            err = check_close(f"{path} gamma_nonneg launch {i}", kernel(*args, **kw),
+                              plain(*args, **kw))
+            ms_plain = cuda_ms(lambda: plain(*args, **kw), 3)
+            ms = cuda_ms(lambda: kernel(*args, **kw), 5)
+            ms_plain2 = cuda_ms(lambda: plain(*args, **kw), 3)
+        flops, nbytes = gamma_nonneg_work(*args)
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"name": "gamma_nonneg", "launch": i, "x": list(args[0].shape),
+               "relevance_in": list(args[1].shape), "flops": flops, "bytes": nbytes,
+               "max_abs_err": err, "ms": ms, "plain_ms": min(ms_plain, ms_plain2),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit({"phase": "kernel_vs_plain" + phase_tag(path), "batch": len(wavs), "K": K, **row})
+    return rows
+
+
+def lower_segment_memory(svc, wavs, class_name, U, path) -> dict:
+    """The lower segment's device time (CUDA events around explain_lower,
+    median of 3) and the whole request's peak device memory (front-end,
+    forward, lower segment), on the shared-denominator path and on the
+    default chain, on the same mels; then the shared request traced (no
+    readback: the heatmaps stay on the device)."""
+    import torch
+    from drsa_audio_tpu_torch.xai.explain import explain_forward_upper, explain_lower
+
+    out = {}
+    for label, shared in (("default", False), ("shared", True)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        heat, mels, sp, mask = shared_dispatch(svc, wavs, class_name, U, shared=shared)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del heat
+        with torch.inference_mode():
+            R_f, acts, _ = explain_forward_upper(sp, svc.params, mels, svc.composite,
+                                                 output_mask=mask, nhwc=not shared)
+            lower = lambda: explain_lower(sp, svc.params, acts, R_f, svc.composite, K,  # noqa
+                                          shared_denominators=shared, nhwc=not shared)
+            ms = float(np.median([cuda_ms(lower, 1) for _ in range(3)]))
+        out[label] = {"lower_ms": ms, "peak_mem_gb": peak}
+        del R_f, acts, mels
+    emit({"phase": "lower_shared_vs_default" + phase_tag(path), "batch": len(wavs), **out})
+
+    def run():
+        shared_dispatch(svc, wavs, class_name, U)
+        torch.cuda.synchronize()
+    emit({"phase": "request_trace" + phase_tag(path), "batch": len(wavs),
+          **traced_request(run)})
+    return out
+
+
+def logmel_rows(wavs, cfg, path) -> list:
+    """fused_logmel on the peak-normalised waveforms of a request: its launch
+    count (counters set to 0 just before, read just after), its error
+    against the plain version (rtol 1e-4, atol 1e-4 in log10 units), and
+    the kernel's, the plain version's and the service's matmul-DFT
+    logmel's times beside the bound."""
+    import torch
+    from drsa_audio_tpu_torch.ops import fused_frontend
+    from drsa_audio_tpu_torch.ops.frontend import logmel, peak_normalize
+
+    with torch.inference_mode():
+        x = peak_normalize(torch.as_tensor(np.asarray(wavs, np.float32), device="cuda"))
+        reset_counts()
+        got = fused_frontend.fused_logmel(x, cfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != {k: int(k == "logmel") for k in SOURCES}:
+            raise AssertionError(f"{path}: launch counts {counts}")
+        assert got.shape == (len(wavs), cfg.n_mels, cfg.width) and torch.isfinite(got).all()
+        err = check_close(f"{path} logmel", got, fused_frontend.fused_logmel_plain(x, cfg),
+                          atol=1e-4)
+        mm_err = check_close(f"{path} logmel vs matmul-DFT logmel", got, logmel(x, cfg),
+                             atol=1e-4)
+        ms = cuda_ms(lambda: fused_frontend.fused_logmel(x, cfg), 10)
+        plain_ms = cuda_ms(lambda: fused_frontend.fused_logmel_plain(x, cfg), 5)
+        mm_ms = cuda_ms(lambda: logmel(x, cfg), 10)
+    flops, nbytes = logmel_work(x, cfg)
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"name": "logmel", "launches": counts["logmel"], "wav": list(x.shape),
+           "flops": flops, "bytes": nbytes, "max_abs_err": err,
+           "max_abs_err_vs_matmul_dft": mm_err, "ms": ms, "plain_ms": plain_ms,
+           "matmul_dft_logmel_ms": mm_ms, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "logmel_vs_plain_" + path, **row})
+    return [row]
+
+
+def signed_permutation(rng, d: int):
+    """A U whose products are exact in float32 (U U^T rebuilds exact zeros),
+    on the card."""
+    import torch
+    U = np.zeros((d, d), np.float32)
+    U[np.arange(d), rng.permutation(d)] = rng.choice([-1.0, 1.0], d)
+    return torch.as_tensor(U, device="cuda")
 
 
 def random_bn_stats(params: dict, seed: int) -> dict:
@@ -524,7 +805,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     request_phases(svc, big, classes[1], "3s_merged", peak_mem_gb_default=peak_3s)
     chain.CHAIN_MERGED = False
-    del svc, big, params
+
+    # ---------------------------------------- 3s, shared-denominator path
+    U_sh = signed_permutation(rng, 64)
+    shared_dispatch(svc, wavs[0][:2], classes[0], U_sh)      # first call: kernel loads
+    serve_sh = serve_shared(svc, wavs, classes, U_sh, 3, "serve_3s_shared")
+    launches["3s_shared"] = serve_sh["launches"]
+    emit(serve_sh)
+    torch.cuda.empty_cache()
+    rows["3s_shared"] = shared_kernel_rows(svc, big, classes[0], U_sh, 3, "3s_shared")
+    lower_segment_memory(svc, big, classes[0], U_sh, "3s_shared")
+    del svc, params
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 6s
@@ -562,6 +853,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     request_phases(svc6, big6, classes6[1], "6s")
 
+    # ---------------------------------------- 6s, shared-denominator path
+    U6 = signed_permutation(rng6, 128)
+    serve_sh6 = serve_shared(svc6, wavs6[:1], classes6[:1], U6, 9, "serve_6s_shared",
+                             strict_clips=2)
+    launches["6s_shared"] = serve_sh6["launches"]
+    emit(serve_sh6)
+    torch.cuda.empty_cache()
+    rows["6s_shared"] = shared_kernel_rows(svc6, wavs6[0], classes6[0], U6, 9, "6s_shared")
+    del svc6, params6
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- log-mel kernel
+    for path, case, w in (("frontend_3s", "gtzan", big), ("frontend_6s", "gtzan_6s", big6),
+                          ("frontend_toy", "toy", wav_t)):
+        rows[path] = logmel_rows(w, FrontendConfig.for_case(case), path)
+        launches[path] = {"logmel": rows[path][0]["launches"]}
+
     kernels = []
     for name in SOURCES:
         paths = {}
@@ -575,8 +883,10 @@ def main() -> int:
                 "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
                 "bound_ms": sum(r["bound_ms"] for r in mine),
                 "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"]}
+            if name == "logmel":
+                paths[path]["matmul_dft_logmel_ms"] = mine[0]["matmul_dft_logmel_ms"]
         top = max(paths.values(), key=lambda v: v["bound_ms"])
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name],
             "launches": sum(v["launches"] for v in paths.values()),
@@ -584,7 +894,10 @@ def main() -> int:
             "ms": sum(v["ms"] for v in paths.values()),
             "plain_ms": sum(v["plain_ms"] for v in paths.values()),
             "bound_ms": sum(v["bound_ms"] for v in paths.values()),
-            "bound_by": top["bound_by"], "library_ms": None, "paths": paths})
+            "bound_by": top["bound_by"], "library_ms": None, "paths": paths}
+        if name == "logmel":
+            row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
+        kernels.append(row)
 
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -1,18 +1,63 @@
-"""Waveform -> log-mel front-end (the port of drsa_audio_tpu.ops.frontend).
+"""Waveform -> log-mel front-end and waveform utilities (the port of
+drsa_audio_tpu.ops.frontend).
 
-Pipeline: peak normalise -> |STFT| (matmul DFT) -> mel -> log10(x + 1e-7)
--> clamp at -4 -> crop time bins [1 : width + 1].
+Pipeline: slice -> peak normalise -> |STFT| (matmul DFT by default) -> mel
+-> log10(x + 1e-7) -> clamp at -4 -> crop time bins [1 : width + 1].
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from drsa_audio_tpu_torch.ops.mel import mel_scale
-from drsa_audio_tpu_torch.ops.stft import stft_mag_matmul
+from drsa_audio_tpu_torch.ops.stft import stft, stft_mag_matmul, stft_magnitude
 from drsa_audio_tpu_torch.utils.constants import AUDIO_PARAMS
+
+
+def round_down(value: float, decimals: int = 1) -> float:
+    """Floor to ``decimals`` decimals."""
+    factor = 10 ** decimals
+    return math.floor(value * factor) / factor
+
+
+def slice_hop_samples(slice_length: int, num_chunks: int, sample_rate: int) -> int:
+    """Hop between evenly spaced slices of the first 29 s."""
+    return int(round_down((29 - slice_length) / (num_chunks - 1), 1) * sample_rate)
+
+
+def chunk_startpoints(slice_length: int, num_chunks: int, sample_rate: int) -> np.ndarray:
+    """Startpoint (seconds) of each chunk that ``get_slices`` extracts."""
+    if num_chunks == 1:
+        return np.zeros(1)
+    hop = slice_hop_samples(slice_length, num_chunks, sample_rate)
+    return np.arange(num_chunks) * hop / sample_rate
+
+
+def get_slices(wav: torch.Tensor, slice_length: int, num_chunks: int,
+               sample_rate: int) -> torch.Tensor:
+    """``num_chunks`` evenly spaced windows of the first 29 s of a
+    [channels, time] waveform (its first channel): [num_chunks, 1, window]."""
+    window = int(slice_length * sample_rate)
+    if num_chunks == 1:
+        return wav[None, :, :window]
+    hop = slice_hop_samples(slice_length, num_chunks, sample_rate)
+    idx = torch.as_tensor(np.arange(num_chunks)[:, None] * hop + np.arange(window)[None, :],
+                          device=wav.device)
+    return wav[:, :29 * sample_rate][0][idx][:, None, :]
+
+
+def get_slice_at(wav: torch.Tensor, slice_length: int, start_point: float,
+                 sample_rate: int) -> torch.Tensor:
+    """One window at ``start_point`` seconds, over the last axis."""
+    window = int(slice_length * sample_rate)
+    start = int(start_point * sample_rate)
+    # clamped as jax.lax.dynamic_slice clamps a window that runs past the end
+    start = max(0, min(start, wav.shape[-1] - window))
+    return wav[..., start:start + window]
 
 
 def peak_normalize(wav: torch.Tensor) -> torch.Tensor:
@@ -20,6 +65,27 @@ def peak_normalize(wav: torch.Tensor) -> torch.Tensor:
     passes through unchanged instead of becoming 0/0."""
     peak = wav.abs().amax(dim=-1, keepdim=True)
     return wav / torch.where(peak > 0, peak, torch.ones_like(peak))
+
+
+def rms_normalize(wav: torch.Tensor, rms_db: float = 0.0) -> torch.Tensor:
+    """Scale each slice to a target RMS in dB."""
+    rms = 10.0 ** (rms_db / 20.0)
+    n = wav.shape[-1]
+    return wav * torch.sqrt((n * rms ** 2) / torch.sum(wav ** 2, dim=-1, keepdim=True))
+
+
+def adjust_vol(reference_audio: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+    """Match the RMS loudness of ``audio`` to ``reference_audio``."""
+    def rms(sig):
+        return torch.sqrt(torch.mean(sig ** 2))
+    return audio * torch.abs(rms(reference_audio) / rms(audio))
+
+
+def minmax_normalize(mel: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:
+    """Per-spectrogram min/max scaling to [-1, 1]."""
+    mel_min = mel.amin(dim=(-2, -1), keepdim=True)
+    mel_max = mel.amax(dim=(-2, -1), keepdim=True)
+    return 2.0 * ((mel - mel_min) / (mel_max - mel_min + epsilon)) - 1.0
 
 
 class FrontendConfig(NamedTuple):
@@ -41,9 +107,41 @@ class FrontendConfig(NamedTuple):
                    num_chunks=p["num_chunks"])
 
 
-def logmel(wav: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
-    """[..., time] waveform -> [..., n_mels, width] log-mel spectrogram."""
-    mag = stft_mag_matmul(wav, config.n_fft, config.hop_length)
+def logmel(wav: torch.Tensor, config: FrontendConfig,
+           use_matmul_dft: bool = True) -> torch.Tensor:
+    """[..., time] waveform -> [..., n_mels, width] log-mel spectrogram. The
+    matmul DFT is the default; ``use_matmul_dft=False`` takes the FFT."""
+    if use_matmul_dft:
+        mag = stft_mag_matmul(wav, config.n_fft, config.hop_length)
+    else:
+        mag = stft_magnitude(wav, config.n_fft, config.hop_length)
     mel = mel_scale(mag, config.n_mels, config.sample_rate)
     out = torch.clamp(torch.log10(mel + 1e-7), min=-4.0)
     return out[..., 1:config.width + 1]
+
+
+def logmel_full(wav: torch.Tensor, config: FrontendConfig):
+    """(magnitude, phase, mel) with time cropped to [:width], for
+    sonification round trips; phase is complex, spec / max(|spec|, 1e-16)."""
+    spec = stft(wav, config.n_fft, config.hop_length)
+    mag = spec.abs()
+    phase = spec / torch.clamp(mag, min=1e-16)
+    mel = mel_scale(mag, config.n_mels, config.sample_rate)
+    w = config.width
+    return mag[..., :w], phase[..., :w], mel[..., :w]
+
+
+def load_clip_to_mels(wav: torch.Tensor, config: FrontendConfig, startpoint: float = 0.0,
+                      num_chunks: int | None = None) -> torch.Tensor:
+    """Slice -> peak normalise -> log-mel of one decoded clip [channels,
+    time]: [num_chunks, 1, n_mels, width]."""
+    num_chunks = config.num_chunks if num_chunks is None else num_chunks
+    if config.slice_length != 0:
+        if num_chunks > 1:
+            sl = get_slices(wav, config.slice_length, num_chunks, config.sample_rate)
+        else:
+            sl = get_slice_at(wav, config.slice_length, startpoint, config.sample_rate)[None]
+    else:
+        sl = wav[None]
+    mels = logmel(peak_normalize(sl), config)
+    return mels.reshape(-1, 1, config.n_mels, config.width)

@@ -1,9 +1,10 @@
-"""STFT magnitude as a matmul DFT (the port of drsa_audio_tpu.ops.stft).
+"""STFT primitives (the port of drsa_audio_tpu.ops.stft).
 
 Semantics match torchaudio.transforms.Spectrogram(power=None): periodic Hann
 window of length n_fft, center=True with reflect padding, one-sided, no
-normalisation. The magnitude is two plain matmuls against a DFT basis built in
-float64 and cast, so it agrees with the FFT path to float32 round-off.
+normalisation. ``stft`` is the FFT path (torch.fft.rfft); the magnitude is
+also two plain matmuls against a DFT basis built in float64 and cast
+(``stft_mag_matmul``), which agrees with the FFT path to float32 round-off.
 """
 
 from __future__ import annotations
@@ -31,6 +32,18 @@ def _frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
                                  mode="reflect")
     frames = xp[:, 0].unfold(-1, n_fft, hop_length)
     return frames.reshape(*lead, frames.shape[-2], n_fft)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """Complex one-sided STFT: [..., time] -> [..., n_fft//2 + 1, n_frames]."""
+    frames = _frame_signal(x, n_fft, hop_length)
+    frames = frames * hann_window(n_fft, frames.dtype, frames.device)
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+def stft_magnitude(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """|STFT| through the FFT: [..., n_freq, n_frames]."""
+    return stft(x, n_fft, hop_length).abs()
 
 
 def dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:

@@ -6,6 +6,7 @@ hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so
 an edited source or header rebuilds). Nothing
 here runs at import time. ``build`` starts one nvcc per missing library, all
 at once, and raises if any of them fails: there is no fallback.
+``check_cuda`` and ``raise_on`` are the wrappers' checks around a launch.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -80,3 +83,24 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LIBS[name] = lib
         return lib
+
+
+def check_cuda(name: str, *tensors) -> None:
+    """Refuse, before any launch, a tensor that is not contiguous float32 on
+    the GPU."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on the GPU")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous float32")
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise for an entry point's return code. The entry points check the
+    channel counts they take themselves and refuse others, before any
+    launch, with cudaErrorInvalidValue (1)."""
+    if err == 1:
+        raise ValueError(f"{name}: the kernel does not take these channel counts "
+                         "or shapes (cudaErrorInvalidValue)")
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from drsa_audio_tpu_torch.models.vgg import conv2d_same_nhwc
+from drsa_audio_tpu_torch.utils.nvcc import check_cuda, load, raise_on
 from drsa_audio_tpu_torch.xai.lrp.rules import stabilize
 
 LAUNCHES = {"chain_block": 0, "first_layer": 0, "first_block_deep": 0, "merged_tail": 0}
@@ -197,8 +198,7 @@ def chain_block_plain(R: torch.Tensor, xs: Sequence[torch.Tensor],
 
 
 def _lib(name: str):
-    from drsa_audio_tpu_torch.utils import nvcc
-    lib = nvcc.load(name)
+    lib = load(name)
     if not getattr(lib, "_typed", False):
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "chain_block":
@@ -218,25 +218,6 @@ def _lib(name: str):
     return lib
 
 
-def _check_cuda(name: str, *tensors) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: every tensor must be on the GPU")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous float32")
-
-
-def _raise_on(err: int, name: str) -> None:
-    """Raise for an entry point's return code. The entry points check the
-    channel counts they take themselves and refuse others, before any
-    launch, with cudaErrorInvalidValue (1)."""
-    if err == 1:
-        raise ValueError(f"{name}: the kernel does not take these channel counts "
-                         "or shapes (cudaErrorInvalidValue)")
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
 def _gamma_prep(x: torch.Tensor, cv: GammaConv, stream,
                 apre: torch.Tensor | None = None, pool: tuple = (1, 1)) -> torch.Tensor:
     """One chain_gamma_prep launch: G [b, H, W, Co] from relu(x), where x is
@@ -245,7 +226,7 @@ def _gamma_prep(x: torch.Tensor, cv: GammaConv, stream,
     ``pool`` above the conv."""
     b, H, W, _ = x.shape
     G = torch.empty((b, H, W, cv.co), device=x.device)
-    _raise_on(_lib("chain_block").chain_gamma_prep(
+    raise_on(_lib("chain_block").chain_gamma_prep(
         x.data_ptr(), cv.w_prep.data_ptr(), cv.biases.data_ptr(),
         apre.data_ptr() if apre is not None else None, G.data_ptr(),
         b, H, W, cv.ci, cv.co, pool[0], pool[1], cv.inv, cv.stab, stream),
@@ -270,8 +251,8 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
     if R.device.type == "cpu":
         return chain_block_plain(R, xs, convs, apre, pool)
     b, K = R.shape[:2]
-    _check_cuda("chain_block", R, *xs, *(apre,) if apre is not None else (),
-                *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
+    check_cuda("chain_block", R, *xs, *(apre,) if apre is not None else (),
+               *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
     if (pool is not None and pool[0] != 2) or b > 65535:
         raise ValueError("chain_block: pools must be (2, kw); batch at most 65535")
     lib = _lib("chain_block")
@@ -286,7 +267,7 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
         if last_pool and tuple(apre.shape) != (b, H * kh, W * kw, cv.ci):
             raise ValueError("chain_block: pool input shape disagrees")
         out = torch.empty((b, K, H * kh, W * kw, cv.ci), device=R.device)
-        _raise_on(lib.chain_gamma_apply(
+        raise_on(lib.chain_gamma_apply(
             R.data_ptr(), G.data_ptr(), x.data_ptr(), cv.w_apply.data_ptr(),
             apre.data_ptr() if last_pool else None, out.data_ptr(),
             b, K, H, W, cv.ci, cv.co, kh, kw, stream), "chain_gamma_apply")
@@ -324,7 +305,7 @@ def first_layer(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tens
     never stored."""
     if R.device.type == "cpu":
         return first_layer_plain(R, a1, fl)
-    _check_cuda("first_layer", R, a1, fl.z0, fl.taps)
+    check_cuda("first_layer", R, a1, fl.z0, fl.taps)
     b, K, Hc, Wc, C = R.shape
     H, W = a1.shape[1:3]
     if (tuple(a1.shape) != (b, 2 * Hc, 2 * Wc, C) or tuple(fl.z0.shape) != (H, W, C)
@@ -332,7 +313,7 @@ def first_layer(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tens
         raise ValueError("first_layer: unsupported shapes")
     heat = torch.empty((b, K, H, W), device=R.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
-    _raise_on(_lib("first_layer").first_layer(
+    raise_on(_lib("first_layer").first_layer(
         R.data_ptr(), a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(),
         heat.data_ptr(), b, K, H, W, C, fl.stab0, stream), "first_layer")
     LAUNCHES["first_layer"] += 1
@@ -381,8 +362,8 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     memory."""
     if R.device.type == "cpu":
         return first_block_deep_plain(R, a1, apre, gconv, fl, pool)
-    _check_cuda("first_block_deep", R, a1, apre, fl.z0, fl.taps,
-                gconv.w_prep, gconv.w_apply, gconv.biases)
+    check_cuda("first_block_deep", R, a1, apre, fl.z0, fl.taps,
+               gconv.w_prep, gconv.w_apply, gconv.biases)
     b, K, Hc, Wc, C = R.shape
     H, W, C0 = a1.shape[1:]
     kh, kw = pool
@@ -394,7 +375,7 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
     M = _gamma_prep(a1, gconv, stream, apre=apre, pool=pool)
     heat = torch.empty((b, K, H, W), device=R.device)
-    _raise_on(_lib("first_block_deep").first_block_deep(
+    raise_on(_lib("first_block_deep").first_block_deep(
         R.data_ptr(), M.data_ptr(), a1.data_ptr(), gconv.w_apply.data_ptr(),
         fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
         b, K, H, W, C0, C, kh, kw, fl.stab0, stream), "first_block_deep")
@@ -444,8 +425,8 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
     written to device memory."""
     if R.device.type == "cpu":
         return merged_tail_plain(R, xs, convs, apres, a1, fl)
-    _check_cuda("merged_tail", R, a1, fl.z0, fl.taps, *xs, *apres,
-                *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
+    check_cuda("merged_tail", R, a1, fl.z0, fl.taps, *xs, *apres,
+               *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
     m = len(convs)
     if m not in (1, 2) or len(xs) != m or len(apres) != m - 1:
         raise ValueError("merged_tail: the kernel takes one or two merged convs")
@@ -471,7 +452,7 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
         M = _gamma_prep(xs[0], bottom, stream)
         top_ptrs = (None, None, None)           # not read with one merged conv
     heat = torch.empty((b, K, H, W), device=R.device)
-    _raise_on(_lib("merged_tail").merged_tail(
+    raise_on(_lib("merged_tail").merged_tail(
         R.data_ptr(), *top_ptrs, M.data_ptr(), xs[-1].data_ptr(), bottom.w_apply.data_ptr(),
         a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
         b, K, H, W, C, bottom.co, top.co, m, fl.stab0, stream), "merged_tail")

@@ -60,6 +60,9 @@ class LayerOp:
     def forward(self, x, w_mod=_identity, b_mod=_identity):
         w = w_mod(self.w)
         b = b_mod(self.b) if (b_mod is not None and self.b is not None) else None
+        return self._apply(x, w, b)
+
+    def _apply(self, x, w, b):
         if self.kind == "conv":
             return (conv2d_same_nhwc if self.nhwc else conv2d_same)(x, w, b)
         if self.kind == "linear":
@@ -70,8 +73,10 @@ class LayerOp:
 
     def vjp(self, g, x, w_mod=_identity):
         """Transpose of x -> forward(x, w_mod, no bias), applied to g; ``x``
-        gives the input shape."""
-        w = w_mod(self.w)
+        gives the input's shape past the batch axis (g sets the batch)."""
+        return self._transpose(g, x, w_mod(self.w))
+
+    def _transpose(self, g, x, w):
         if self.kind == "conv":
             if self.nhwc:
                 g = g.permute(0, 3, 1, 2)
@@ -83,6 +88,29 @@ class LayerOp:
         if self.kind == "projection":
             return projection_vjp(g, w, tuple(x.shape[2:]))
         return inv_projection_vjp(g, w, self.k)
+
+    def _out_axis(self) -> int:
+        return 1 if (self.kind == "conv" and not self.nhwc) else -1
+
+    def forward_stacked(self, x, w_mods, b_mods):
+        """forward(x, w_mods[i], b_mods[i]) for every i (b_mods[i] None: no
+        bias). A conv or linear layer runs them as ONE conv or matmul with
+        the weight variants stacked on the output axis, as the JAX
+        package's ``grouped``."""
+        if self.kind not in ("conv", "linear"):
+            return tuple(self.forward(x, wm, bm) for wm, bm in zip(w_mods, b_mods))
+        w = torch.cat([m(self.w) for m in w_mods])
+        b = torch.cat([m(self.b) if m is not None else torch.zeros_like(self.b)
+                       for m in b_mods])
+        return self._apply(x, w, b).chunk(len(w_mods), dim=self._out_axis())
+
+    def vjp_stacked(self, gs, x, w_mods):
+        """sum_i vjp(gs[i], x, w_mods[i]); for a conv or linear layer ONE
+        transpose over the cotangents stacked on the output axis."""
+        if self.kind not in ("conv", "linear"):
+            return sum(self.vjp(g, x, m) for g, m in zip(gs, w_mods))
+        return self._transpose(torch.cat(gs, dim=self._out_axis()), x,
+                               torch.cat([m(self.w) for m in w_mods]))
 
     def bias_of(self, b_mod):
         """f(0) of the modified layer, broadcastable against its output."""

@@ -30,7 +30,8 @@ from drsa_audio_tpu_torch.utils.convert import from_jax_params, to_state_dict
 from drsa_audio_tpu_torch.xai import explain as texp
 from drsa_audio_tpu_torch.xai.lrp import chain as tchain
 from test_torch_util import (
-    assert_close_lrp, both_models, random_bn, signed_permutation, t, to_np)
+    POOL_MARGIN, assert_close_lrp, both_models, random_bn, service_margins,
+    signed_permutation, t, to_np)
 
 K = 3
 HW6 = (128, 256)
@@ -238,12 +239,26 @@ def test_6s_forward_upper_matches_jax(layer, d):
 def test_6s_service_matches_jax():
     """ExplainerService on the 6s model at layer 33 (folded, bridged
     weights), one 6 s clip, against the JAX service; standard = sum of the
-    subspace maps, and the chain agrees with the plain tiled walk."""
+    subspace maps, and the chain agrees with the plain tiled walk.
+
+    The clip is drawn from numpy seed 14, whose JAX forward holds no pool
+    window within POOL_MARGIN of a tie: margin 5.1e-7, 1.3x the 6s
+    threshold and the largest of the scan in test_torch_util.py (seeds
+    0-299). Where that scan ran, the closest window's gap was 4.5x the
+    change the port's forward made to it (route_agreement), so a host
+    routes it otherwise only if its round-off differs that much more; a
+    6s input cannot do better (see POOL_MARGIN). Seed 1 held a window at
+    pool features.13 with a gap of 1.6e-8 of the map's maximum: the CPU's
+    convolution summation order decided its first argmax, and the heatmaps
+    then differed from the JAX ones by 3.1e-3 of their maximum on some
+    hosts (ROADMAP Queue 3 item 3)."""
     jspecs, jparams, tspecs, tparams, nm, layer, d, _, case = both_models("gtzan6s")
     Us = {"jazz": signed_permutation(11, d)}
+    wavs = (np.random.default_rng(14).standard_normal((1, 96000)) * 0.3).astype(np.float32)
+    margins = service_margins(jspecs, jparams, layer, Us["jazz"], wavs, case)
+    assert margins[0] >= POOL_MARGIN["gtzan6s"], margins
     js = JService(jspecs, jparams, nm, Us, 4, layer, case=case)
     ts = ExplainerService(tspecs, tparams, nm, Us, 4, layer, case=case, device="cpu")
-    wavs = (np.random.default_rng(1).standard_normal((1, 96000)) * 0.3).astype(np.float32)
     want, got = js.explain(wavs, "jazz"), ts.explain(wavs, "jazz")
     assert got["subspace_heatmaps"].shape == (1, 4) + HW6
     for key in ("standard_heatmaps", "subspace_heatmaps", "subspace_relevances",

@@ -16,8 +16,11 @@ from drsa_audio_tpu.xai.lrp.pallas_chain import fused_lower_conv_backward as j_f
 from drsa_audio_tpu.xai.lrp.pallas_chain import plan_chain as j_plan
 from drsa_audio_tpu_torch.models import vgg as tvgg
 from drsa_audio_tpu_torch.models.projection import insert_projection as t_insert
+from drsa_audio_tpu_torch.ops import fused_frontend
+from drsa_audio_tpu_torch.ops.frontend import FrontendConfig
 from drsa_audio_tpu_torch.xai import explain as texp
 from drsa_audio_tpu_torch.xai.lrp import chain as tchain
+from drsa_audio_tpu_torch.xai.lrp import fused_gamma
 from test_torch_util import assert_close_lrp, both_models, signed_permutation, t
 
 K = 3
@@ -186,9 +189,10 @@ def test_deep_first_block_chain_matches_plain_walk(rng):
     assert_close_lrp(heat.numpy(), want.numpy())
 
 
-def test_wrappers_never_fall_back(rng):
+def test_wrappers_never_fall_back(rng, monkeypatch):
     """A tensor that is neither on the CPU nor on a GPU is refused; the
-    plain version is never taken for it."""
+    plain version is never taken for it. The same for the gamma_nonneg and
+    log-mel wrappers."""
     conv_sec, params, nm = _toy_sections()
     cv = tchain.prep_inner_weights(params, conv_sec[9], {"gamma": 0.8})
     R = torch.empty((1, 2, 8, 8, 16), device="meta")
@@ -214,3 +218,16 @@ def test_wrappers_never_fall_back(rng):
                            torch.empty((1, 8, 8, 8), device="meta"), fl8)
     assert tchain.LAUNCHES == {"chain_block": 0, "first_layer": 0, "first_block_deep": 0,
                                "merged_tail": 0}
+    plain = []
+    for mod, name in ((fused_gamma, "gamma_nonneg_folded_plain"),
+                      (fused_frontend, "fused_logmel_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, name=name, **k: plain.append(name))
+    with pytest.raises(ValueError, match="GPU"):
+        fused_gamma.gamma_nonneg_folded(
+            torch.empty((1, 8, 8, 8), device="meta"), torch.empty((2, 16, 8, 8), device="meta"),
+            torch.empty((16, 8, 3, 3), device="meta"), torch.empty(16, device="meta"), 2)
+    with pytest.raises(ValueError, match="GPU"):
+        fused_frontend.fused_logmel(torch.empty((2, 16000), device="meta"),
+                                    FrontendConfig.for_case("toy"))
+    assert plain == []
+    assert fused_gamma.LAUNCHES == {"gamma_nonneg": 0} and fused_frontend.LAUNCHES == {"logmel": 0}

@@ -252,3 +252,72 @@ def _6s_model():
     from chip_smoke import random_bn_stats
     specs = vgg.build_layer_specs(vgg.gtzan_6s_config())
     return specs, random_bn_stats(vgg.init_params(specs, 0, device="cuda"), seed=1)
+
+
+# ------------------------------------------------------------ gamma_nonneg
+
+def _gamma_inputs(rng, b, K, ci, co, H, W, dev):
+    x = np.maximum(rng.standard_normal((b, ci, H, W)), 0).astype(np.float32)
+    x[0, 0, :2] = 0.0
+    R = rng.standard_normal((K * b, co, H, W)).astype(np.float32)
+    w = (rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci))).astype(np.float32)
+    bias = (rng.standard_normal(co) * 0.05).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (x, R, w, bias)]
+
+
+@pytest.mark.parametrize("ci,co,H,W", [
+    (64, 64, 16, 16), (32, 64, 32, 32), (32, 32, 64, 64),   # 3s convs 9, 6, 3
+    (8, 16, 8, 8), (16, 16, 8, 16),                          # the JAX test's shapes
+    (8, 8, 9, 13), (16, 32, 7, 5),                           # toy widths, ragged
+    (64, 100, 16, 16), (100, 100, 11, 6), (100, 128, 8, 8),  # 6s widths
+    (128, 128, 17, 9), (64, 64, 128, 256),                   # widest; 6s block 0
+])
+@pytest.mark.parametrize("K", [1, 2])
+def test_gamma_nonneg_kernel_matches_plain(cuda, ci, co, H, W, K):
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    rng = np.random.default_rng(ci * 1000 + co)
+    b = 1 if H * W > 10000 else 3
+    x, R, w, bias = _gamma_inputs(rng, b, K, ci, co, H, W, cuda)
+    n0 = fused_gamma.LAUNCHES["gamma_nonneg"]
+    got = fused_gamma.gamma_nonneg_folded(x, R, w, bias, K, gamma=0.3, stabilizer=1e-7)
+    assert fused_gamma.LAUNCHES["gamma_nonneg"] == n0 + 1
+    _close(got, fused_gamma.gamma_nonneg_folded_plain(x, R, w, bias, K, 0.3, 1e-7))
+
+
+@pytest.mark.parametrize("ci,co", [(8, 12), (6, 16), (136, 128), (64, 136)])
+def test_gamma_nonneg_kernel_refuses_unsupported_counts(cuda, ci, co):
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    x, R, w, bias = _gamma_inputs(np.random.default_rng(0), 1, 2, ci, co, 8, 8, cuda)
+    n0 = fused_gamma.LAUNCHES["gamma_nonneg"]
+    with pytest.raises(ValueError, match="cudaErrorInvalidValue"):
+        fused_gamma.gamma_nonneg_folded(x, R, w, bias, 2)
+    assert fused_gamma.LAUNCHES["gamma_nonneg"] == n0
+
+
+# ------------------------------------------------------------------ logmel
+
+@pytest.mark.parametrize("case,b", [("toy", 32), ("gtzan", 7), ("gtzan_6s", 3)])
+def test_logmel_kernel_matches_plain(cuda, case, b):
+    """rtol 1e-4, atol 1e-4 in log10 units; an odd batch, and a silent clip
+    among the clips (all -4)."""
+    from drsa_audio_tpu_torch.ops import frontend, fused_frontend
+    cfg = frontend.FrontendConfig.for_case(case)
+    rng = np.random.default_rng(b)
+    wav = (rng.standard_normal((b, cfg.sample_rate * cfg.slice_length)) * 0.3).astype(np.float32)
+    wav[1] = 0.0
+    wav = frontend.peak_normalize(torch.as_tensor(wav, device=cuda))
+    n0 = fused_frontend.LAUNCHES["logmel"]
+    got = fused_frontend.fused_logmel(wav, cfg)
+    assert fused_frontend.LAUNCHES["logmel"] == n0 + 1
+    assert got.shape == (b, cfg.n_mels, cfg.width) and bool((got[1] == -4.0).all())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused_frontend.fused_logmel_plain(wav, cfg),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, frontend.logmel(wav, cfg), rtol=1e-4, atol=1e-4)
+
+
+def test_logmel_kernel_refuses_unsupported_sizes(cuda):
+    from drsa_audio_tpu_torch.ops import frontend, fused_frontend
+    cfg = frontend.FrontendConfig.for_case("toy")
+    with pytest.raises(ValueError, match="cudaErrorInvalidValue"):
+        fused_frontend.fused_logmel(torch.zeros((2, 1000), device=cuda), cfg)

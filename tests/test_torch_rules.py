@@ -24,7 +24,15 @@ RULE_CASES = [
     ("gamma_nonneg", {"gamma": 0.4, "stabilizer": 1e-7}),
     ("wsquare", {"stabilizer": 1e-7}),
     ("flat", {"stabilizer": 1e-7}),
+    ("norm", {"stabilizer": 1e-6}),
+    ("zplus", {"stabilizer": 1e-6}),
+    ("alphabeta", {"alpha": 2.0, "beta": 1.0, "stabilizer": 1e-6}),
+    ("zbox", {"low": -1.5, "high": 1.5, "stabilizer": 1e-6}),
 ]
+# the rules with a shared-activation variant (rules.SHARED_RULES); the
+# second alphabeta case is tests/test_lrp_rules.py's linear one
+SHARED_CASES = [c for c in RULE_CASES if c[0] in trules.SHARED_RULES] + [
+    ("alphabeta", {"alpha": 1.5, "beta": 0.5, "stabilizer": 1e-6})]
 
 
 def _layer(kind, rng, nhwc=False):
@@ -60,6 +68,51 @@ def test_rule_matches_jax(rule, kw, kind, nhwc, rng):
     want = np.asarray(jrules.RULES[rule](jop, jnp.asarray(x), jnp.asarray(R), **kw))
     got = trules.RULES[rule](top, t(x), t(R), **kw).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
+def _shared_inputs(rule, kind, rng, K=3):
+    jop, top, shape = _layer(kind, rng)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if rule == "gamma_nonneg":
+        x = np.maximum(x, 0.0)
+        x[0, 0] = 0.0
+    z = np.asarray(jop(lambda p: p, lambda p: p)(jnp.asarray(x)))
+    R = rng.standard_normal((K * z.shape[0],) + z.shape[1:]).astype(np.float32)
+    return jop, top, x, R, K
+
+
+@pytest.mark.parametrize("kind", ["conv", "linear"])
+@pytest.mark.parametrize("rule,kw", SHARED_CASES)
+def test_shared_rule_matches_jax(rule, kw, kind, rng):
+    """x at batch b, R at K*b (clone-major), against the JAX package's
+    shared variant (its grouped fast path for convs and linears)."""
+    jop, top, x, R, K = _shared_inputs(rule, kind, rng)
+    want = np.asarray(jrules.SHARED_RULES[rule](jop, jnp.asarray(x), jnp.asarray(R), K, **kw))
+    got = trules.SHARED_RULES[rule](top, t(x), t(R), K, **kw).numpy()
+    assert got.shape == want.shape == (R.shape[0],) + x.shape[1:]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", ["conv", "linear"])
+@pytest.mark.parametrize("rule,kw", SHARED_CASES)
+def test_shared_rule_matches_tiled_rule(rule, kw, kind, rng):
+    """Each shared variant equals its tiled rule on _expand_batch(x)."""
+    _, top, x, R, K = _shared_inputs(rule, kind, rng)
+    want = trules.RULES[rule](top, trules._expand_batch(t(x), K), t(R), **kw).numpy()
+    got = trules.SHARED_RULES[rule](top, t(x), t(R), K, **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
+def test_rule_tables_match_jax():
+    assert set(trules.RULES) == set(jrules.RULES)
+    assert set(trules.SHARED_RULES) == set(jrules.SHARED_RULES)
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    np.testing.assert_array_equal(trules._expand_batch(t(x), 3).numpy(),
+                                  np.asarray(jrules._expand_batch(jnp.asarray(x), 3)))
+    big = np.arange(18, dtype=np.float32).reshape(6, 3)
+    np.testing.assert_array_equal(
+        trules._mul_small(t(big), t(x), 3).numpy(),
+        np.asarray(jrules._mul_small(jnp.asarray(big), jnp.asarray(x), 3)))
 
 
 def test_stabilize_sign_of_zero():

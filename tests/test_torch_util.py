@@ -6,7 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from drsa_audio_tpu.models import projection as jproj
 from drsa_audio_tpu.models import vgg as jvgg
+from drsa_audio_tpu.ops import frontend as jfe
 from drsa_audio_tpu.utils import constants as jconst
 from drsa_audio_tpu_torch.models import vgg as tvgg
 from drsa_audio_tpu_torch.utils.convert import from_jax_params
@@ -67,6 +69,100 @@ def t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, np.float32))
 
 
+# Smallest pool margin (tie_margins) that a cross-framework parity test's
+# input must hold, per model, relative to the pooled tensor's maximum. The
+# scan at the end of this file (service inputs, U = signed_permutation(11))
+# counts the windows that the two packages' forwards route differently:
+# toy (b=2, seeds 0-199) flipped at gaps up to 1.2e-7 and gtzan3s (b=1,
+# seeds 0-199) up to 2.3e-7, so their thresholds are about 4x that. gtzan6s
+# (b=1, seeds 0-299) flipped at gaps up to 3.3e-7, and once at 2.2e-6 (seed
+# 35, whose two log-mels differ by 6.3e-5 in log10 units); no 6s input of
+# the scan holds more than 5.1e-7 (seed 14), so its threshold is 4e-7,
+# above every flip seen but that one.
+POOL_MARGIN = {"toy": 5e-7, "gtzan3s": 1e-6, "gtzan6s": 4e-7}
+
+
+def _windows(a: np.ndarray, kh: int, kw: int) -> np.ndarray:
+    b, c, H, W = a.shape
+    return a.reshape(b, c, H // kh, kh, W // kw, kw).transpose(
+        0, 1, 2, 4, 3, 5).reshape(b, c, H // kh, W // kw, kh * kw)
+
+
+def tie_margins(jspecs_proj, jparams, x) -> tuple[float, float]:
+    """The precondition of a parity test between the two packages' forwards,
+    from the JAX forward's recorded activations (NCHW, every layer of
+    ``jspecs_proj`` on input ``x``):
+
+    - pool: the smallest gap between the two largest entries of a max-pool
+      window, over every window whose maximum is positive, relative to the
+      maximum of that pool's input. Below the frameworks' float32 round-off
+      the first argmax can differ, and the window's relevance then lands on
+      another pixel;
+    - relu: the smallest |pre-activation| at a relu gate, relative to that
+      input's maximum. The tests report it with the pool margin but set no
+      threshold on it: every rule above a relu multiplies by the relu's
+      output, so a sign flip at |a| = m moves relevance of order m only.
+    """
+    pool = relu = np.inf
+    h = jnp.asarray(x)
+    for spec in jspecs_proj:
+        a = np.asarray(h)
+        if spec.kind == "maxpool":
+            win = np.sort(_windows(a, *spec.config["kernel"]), axis=-1)
+            live = win[..., -1] > 0
+            if live.any():
+                gap = (win[..., -1] - win[..., -2])[live]
+                pool = min(pool, float(gap.min() / np.abs(a).max()))
+        elif spec.kind == "relu":
+            relu = min(relu, float(np.abs(a).min() / np.abs(a).max()))
+        h = jvgg.apply_layer(spec, jparams, h, train=False)
+    return pool, relu
+
+
+def _service_inputs(jspecs, layer: int, U, wavs, case: str):
+    cfg = jfe.FrontendConfig.for_case(case)
+    mels = jfe.logmel(jfe.peak_normalize(jnp.asarray(wavs)), cfg)[:, None]
+    jsp = jproj.insert_projection(jspecs, layer, jnp.asarray(U), 4,
+                                  input_size=(cfg.n_mels, cfg.width))
+    return jsp, mels
+
+
+def service_margins(jspecs, jparams, layer: int, U, wavs, case: str):
+    """tie_margins of a service request: the JAX front-end's mels through
+    the JAX model with the projection at ``layer``."""
+    jsp, mels = _service_inputs(jspecs, layer, U, wavs, case)
+    return tie_margins(jsp, jparams, mels)
+
+
+def route_agreement(jsp, jparams, tsp, tparams, xj, xt) -> tuple[int, float, float]:
+    """Both packages' forwards side by side (JAX on ``xj``, the port on
+    ``xt``): the number of live max-pool windows whose first argmax differs,
+    the largest top-two gap among them (relative, as in tie_margins), and
+    the smallest ratio, over live windows, of the JAX top-two gap to the
+    change of that gap in the port's forward (below 1 the window can flip).
+    Measured on the host that runs it; the scan below reports it."""
+    flips, flip_gap, ratio = 0, 0.0, np.inf
+    hj, ht = jnp.asarray(xj), torch.as_tensor(np.asarray(xt))
+    for sj, st in zip(jsp, tsp):
+        if sj.kind == "maxpool":
+            wj, wt = (_windows(np.asarray(a), *sj.config["kernel"]) for a in (hj, ht))
+            order = np.argsort(wj, axis=-1)[..., -2:]
+            top2_j, top2_t = (np.take_along_axis(w, order, -1) for w in (wj, wt))
+            gap = top2_j[..., 1] - top2_j[..., 0]
+            change = np.abs(top2_t[..., 1] - top2_t[..., 0] - gap)
+            live = top2_j[..., 1] > 0
+            flipped = (wj.argmax(-1) != wt.argmax(-1)) & live
+            flips += int(flipped.sum())
+            if flipped.any():
+                flip_gap = max(flip_gap, float(gap[flipped].max() / np.abs(wj).max()))
+            if live.any():
+                ratio = min(ratio, float((gap / np.maximum(change, 1e-30))[live].min()))
+        hj = jvgg.apply_layer(sj, jparams, hj, train=False)
+        with torch.no_grad():
+            ht = tvgg.apply_layer(st, tparams, ht)
+    return flips, flip_gap, ratio
+
+
 def signed_permutation(seed: int, d: int) -> np.ndarray:
     """An orthogonal U whose products are exact in float32: the inverse
     projection then rebuilds exact relu zeros as exact zeros in both
@@ -75,3 +171,34 @@ def signed_permutation(seed: int, d: int) -> np.ndarray:
     U = np.zeros((d, d), np.float32)
     U[np.arange(d), rng.permutation(d)] = rng.choice([-1.0, 1.0], d)
     return U
+
+
+if __name__ == "__main__":
+    # Scan service inputs for POOL_MARGIN: per numpy seed of the waveforms,
+    # the JAX forward's tie margins, the windows the port routes otherwise
+    # with the largest gap among them, route_agreement's ratio, and the
+    # largest difference of the two packages' log-mels. From the repository
+    # root:
+    #   PYTHONPATH=. python tests/test_torch_util.py gtzan6s 1 0 300  # model, batch, seeds
+    import sys
+
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.ops import frontend as tfe
+
+    jax.config.update("jax_platforms", "cpu")
+    name, b, first, last = sys.argv[1], *map(int, sys.argv[2:5])
+    jspecs, jparams, tspecs, tparams, _, layer, d, hw, case = both_models(name)
+    U = signed_permutation(11, d)
+    tsp = insert_projection(tspecs, layer, t(U), 4, input_size=hw)
+    n = jfe.FrontendConfig.for_case(case)
+    n = n.slice_length * n.sample_rate
+    for seed in range(first, last):
+        wavs = (np.random.default_rng(seed).standard_normal((b, n)) * 0.3).astype(np.float32)
+        jsp, mj = _service_inputs(jspecs, layer, U, wavs, case)
+        mt = tfe.logmel(tfe.peak_normalize(t(wavs)), tfe.FrontendConfig.for_case(case))[:, None]
+        pool, relu = tie_margins(jsp, jparams, mj)
+        flips, flip_gap, ratio = route_agreement(jsp, jparams, tsp, tparams, mj, mt)
+        mel_diff = float(np.abs(np.asarray(mj) - mt.numpy()).max())
+        print(f"{name} seed {seed}: pool margin {pool:.3g}, relu margin {relu:.3g}, "
+              f"windows routed otherwise {flips} (largest gap {flip_gap:.3g}), "
+              f"gap/change ratio {ratio:.3g}, log-mel difference {mel_diff:.3g}", flush=True)
