@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the six CUDA kernels
-   (csrc/*.cu, one nvcc each, in parallel).
+   (csrc/*.cu, one nvcc each, in parallel), and counts the HMMA
+   (tensor-core) instructions in the SASS of chain_block and
+   first_block_deep (cuobjdump): it fails where there are none.
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
    weights and U), with every launch counter set to 0 just before and read
@@ -16,7 +18,8 @@
    heatmaps and logits computed from the same mels.
 4. Records the inputs of the four kernel launches of one 256-clip request,
    holds each kernel against its plain PyTorch version on them (TF32 off),
-   and times both with CUDA events beside the kernel's lower bound.
+   and times both with CUDA events beside the kernel's lower bound. Each
+   kernel runs twice on each recorded input and must give the same bits.
 5. Times one 256-clip request end to end, then the service's own stages of
    the same request (upload, front-end, forward + upper LRP, lower segment,
    readback, sort; medians of STAGE_REPS), and traces one request with
@@ -65,7 +68,11 @@ frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
 batches of 10) and at its top level their sums over the paths (launches:
 the counts of the served requests of 2, 5m, 6 and 9 and the calls of 10;
 max_abs_err: the largest). The log-mel row also carries the matmul-DFT
-logmel's time.
+logmel's time. bound_ms is the least time for the work: the larger of
+bytes at 3.35 TB/s and flops at three TF32 products each at 495 TFLOP/s
+(3xTF32 on the tensor cores, the least time for f32-accurate products on
+this card); bound_tc_ms is the same number under its tensor-core name, and
+bound_fma_ms the same with the flops at f32's 67 TFLOP/s on the FMA units.
 
 Tolerance for every comparison: rtol 1e-4, atol 1e-5 * max|plain| (the JAX
 package's own fused-vs-tiled bound); for the log-mel, rtol 1e-4, atol 1e-4
@@ -85,6 +92,7 @@ import numpy as np
 B_SERVE, B_KERNEL, B_KERNEL_6S, K = 32, 256, 64, 4
 STAGE_REPS = 5
 PEAK_FLOPS = 67e12        # H100 SXM, f32 outside the tensor cores
+PEAK_TF32 = 495e12        # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TPU_KERNELS = {
     "chain_block": "drsa_audio_tpu/xai/lrp/pallas_chain.py:624",
@@ -133,9 +141,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+def bounds(flops: float, nbytes: float) -> dict:
+    """The least time, ms, for the work: the larger of the bytes at the
+    memory rate and the flops with every f32 product done on the tensor
+    cores in 3xTF32 (three TF32 products each), the least time for
+    f32-accurate products on this card (``bound_ms``, also under its
+    tensor-core name ``bound_tc_ms``); and the same with the flops on the
+    FMA units at f32's 67 TFLOP/s (``bound_fma_ms``)."""
+    t_ops, t_bytes = 3.0 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    least = max(t_ops, t_bytes) * 1e3
+    return {"bound_ms": least, "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_tc_ms": least, "bound_fma_ms": max(flops / PEAK_FLOPS, t_bytes) * 1e3}
+
+
+def hmma_counts(libs: dict) -> dict:
+    """The HMMA (tensor-core) instructions in the SASS of the two
+    tensor-core kernels' libraries, by cuobjdump; fails where there are
+    none."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts = {}
+    for name in ("chain_block", "first_block_deep"):
+        sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+        if not counts[name]:
+            raise AssertionError(f"{name}: no HMMA instruction in {libs[name].name}")
+    return counts
 
 
 def reset_counts() -> None:
@@ -193,7 +224,7 @@ def chain_block_work(R, xs, convs, apre=None, pool=None):
     for x, cv in zip(xs, convs):
         H, W = x.shape[1:3]
         flops += 2.0 * (2 + k) * b * H * W * cv.ci * cv.co * 9
-        nbytes += 4.0 * (x.numel() + cv.w_prep.numel() + cv.w_apply.numel())
+        nbytes += 4.0 * (x.numel() + 3 * cv.wz1.numel())     # the pair and the apply taps
     out = b * k * xs[-1].shape[1] * xs[-1].shape[2] * convs[-1].ci
     if apre is not None:
         nbytes += 4.0 * apre.numel()
@@ -218,8 +249,8 @@ def first_block_deep_work(R, a1, apre, gconv, fl, pool):
     H, W, C0 = a1.shape[1:]
     C = apre.shape[-1]
     flops = 2.0 * (2 + k) * b * H * W * C0 * C * 9 + 2.0 * k * b * H * W * C0 * 9
-    nbytes = 4.0 * (R.numel() + a1.numel() + apre.numel() + gconv.w_prep.numel()
-                    + gconv.w_apply.numel() + fl.z0.numel() + fl.taps.numel()
+    nbytes = 4.0 * (R.numel() + a1.numel() + apre.numel() + 3 * gconv.wz1.numel()
+                    + fl.z0.numel() + fl.taps.numel()
                     + b * k * H * W)
     return flops, nbytes
 
@@ -236,7 +267,7 @@ def merged_tail_work(R, xs, convs, apres, a1, fl):
                     + sum(a.numel() for a in apres))
     for x, cv in zip(xs, convs):
         flops += 2.0 * (2 + k) * b * x.shape[1] * x.shape[2] * cv.ci * cv.co * 9
-        nbytes += 4.0 * (x.numel() + cv.w_prep.numel() + cv.w_apply.numel())
+        nbytes += 4.0 * (x.numel() + 3 * cv.wz1.numel())
     return flops, nbytes
 
 
@@ -425,15 +456,17 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
             want = plain_fns[name](*args)
             torch.cuda.synchronize()
             err = check_close(f"{path} {name} launch {i}", got, want)
-            del got, want
+            del want
+            if not torch.equal(got, originals[name](*args)):
+                raise AssertionError(f"{path} {name} launch {i}: two runs differ")
+            del got
             ms_plain = cuda_ms(lambda: plain_fns[name](*args), 3)
             ms = cuda_ms(lambda: originals[name](*args), 5)
             ms_plain2 = cuda_ms(lambda: plain_fns[name](*args), 3)
         flops, nbytes = work_fns[name](*args)
-        b_ms, b_by = bound(flops, nbytes)
         row = {"name": name, "launch": i, "relevance_in": list(args[0].shape),
                "flops": flops, "bytes": nbytes, "max_abs_err": err, "ms": ms,
-               "plain_ms": min(ms_plain, ms_plain2), "bound_ms": b_ms, "bound_by": b_by}
+               "plain_ms": min(ms_plain, ms_plain2), **bounds(flops, nbytes)}
         rows.append(row)
         emit({"phase": "kernel_vs_plain" + phase_tag(path), "batch": batch, "K": K, **row})
     return rows
@@ -588,11 +621,10 @@ def shared_kernel_rows(svc, wavs, class_name, U, expected, path) -> list:
             ms = cuda_ms(lambda: kernel(*args, **kw), 5)
             ms_plain2 = cuda_ms(lambda: plain(*args, **kw), 3)
         flops, nbytes = gamma_nonneg_work(*args)
-        b_ms, b_by = bound(flops, nbytes)
         row = {"name": "gamma_nonneg", "launch": i, "x": list(args[0].shape),
                "relevance_in": list(args[1].shape), "flops": flops, "bytes": nbytes,
                "max_abs_err": err, "ms": ms, "plain_ms": min(ms_plain, ms_plain2),
-               "bound_ms": b_ms, "bound_by": b_by}
+               **bounds(flops, nbytes)}
         rows.append(row)
         emit({"phase": "kernel_vs_plain" + phase_tag(path), "batch": len(wavs), "K": K, **row})
     return rows
@@ -661,11 +693,10 @@ def logmel_rows(wavs, cfg, path) -> list:
         plain_ms = cuda_ms(lambda: fused_frontend.fused_logmel_plain(x, cfg), 5)
         mm_ms = cuda_ms(lambda: logmel(x, cfg), 10)
     flops, nbytes = logmel_work(x, cfg)
-    b_ms, b_by = bound(flops, nbytes)
     row = {"name": "logmel", "launches": counts["logmel"], "wav": list(x.shape),
            "flops": flops, "bytes": nbytes, "max_abs_err": err,
            "max_abs_err_vs_matmul_dft": mm_err, "ms": ms, "plain_ms": plain_ms,
-           "matmul_dft_logmel_ms": mm_ms, "bound_ms": b_ms, "bound_by": b_by}
+           "matmul_dft_logmel_ms": mm_ms, **bounds(flops, nbytes)}
     emit({"phase": "logmel_vs_plain_" + path, **row})
     return [row]
 
@@ -727,10 +758,14 @@ def main() -> int:
 
     t0 = time.time()
     libs = nvcc.build(list(SOURCES))
+    logs = {n: p.with_suffix(".log").read_text().splitlines() for n, p in libs.items()}
     emit({"phase": "build", "seconds": time.time() - t0,
-          "ptxas": {n: [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines()
-                        if "registers" in ln or "smem" in ln]
-                    for n, p in libs.items()}})
+          "ptxas": {n: [ln.strip() for ln in lines if "registers" in ln or "smem" in ln]
+                    for n, lines in logs.items()},
+          "spill_store_bytes": {n: sum(int(ln.split("bytes spill stores")[0].split()[-1])
+                                       for ln in lines if "bytes spill stores" in ln)
+                                for n, lines in logs.items()}})
+    emit({"phase": "sass", "hmma": hmma_counts(libs)})
 
     # ---------------------------------------------------------------- 3s
     specs = build_layer_specs(gtzan_3s_config())
@@ -882,7 +917,9 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
                 "bound_ms": sum(r["bound_ms"] for r in mine),
-                "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"]}
+                "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                "bound_tc_ms": sum(r["bound_tc_ms"] for r in mine),
+                "bound_fma_ms": sum(r["bound_fma_ms"] for r in mine)}
             if name == "logmel":
                 paths[path]["matmul_dft_logmel_ms"] = mine[0]["matmul_dft_logmel_ms"]
         top = max(paths.values(), key=lambda v: v["bound_ms"])
@@ -894,7 +931,10 @@ def main() -> int:
             "ms": sum(v["ms"] for v in paths.values()),
             "plain_ms": sum(v["plain_ms"] for v in paths.values()),
             "bound_ms": sum(v["bound_ms"] for v in paths.values()),
-            "bound_by": top["bound_by"], "library_ms": None, "paths": paths}
+            "bound_by": top["bound_by"],
+            "bound_tc_ms": sum(v["bound_tc_ms"] for v in paths.values()),
+            "bound_fma_ms": sum(v["bound_fma_ms"] for v in paths.values()),
+            "library_ms": None, "paths": paths}
         if name == "logmel":
             row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
         kernels.append(row)

@@ -15,211 +15,295 @@
 // m3 = [z_true < 0] / stab(z3). Where z_true < 0 the relu gate is 0, and
 // elsewhere m3 is 0, so that term is identically zero and is not computed.
 //
-// Two launches per conv:
-//   gamma_prep   once per (instance, 8x8 tile): both forward convs over all
-//                output channels, writes G to scratch [b, H, W, Co]. It reads
-//                relu(x): a chain conv's input is a relu output already, and
-//                the deep first block (csrc/first_block_deep.cu) passes the
-//                pre-relu a1. For that block it also zeroes G off the
-//                first-argmax route of the (kh, kw) pool above the conv, so
-//                that the clone-shared route is taken once per instance.
-//   gamma_apply  once per (instance, clone, 8x8 tile): the transposed conv of
-//                R * G over the tile plus a 1-pixel halo, times x, and the
-//                first-argmax pool route of relu(apre) when a pool is below.
+// Two launches per conv, both through the tensor-core core of
+// conv3x3_tc.cuh (3xTF32 implicit GEMM, cp.async double buffering):
+//   gamma_prep   once per (instance, tile, column block): one GEMM with
+//                N = 2*Co over the interleaved forward pair (column 2j the
+//                taps of w + g*w+, 2j + 1 those of w + g*w-), so a thread's
+//                accumulator pair is (z1, z3) of one channel; the epilogue
+//                forms z_true and G in registers and writes G [b, H, W, Co].
+//                It reads relu(x): a chain conv's input is a relu output
+//                already, and the deep first block (first_block_deep.cu)
+//                passes the pre-relu a1; for that block it also zeroes G off
+//                the first-argmax route of the (kh, kw) pool above the conv
+//                (strict >, row-major: an all-tied window routes to position
+//                0), so that the clone-shared route is taken once per
+//                instance. merged_tail.cu's preps are this launch too.
+//   gamma_apply  once per (instance, clone, tile, column block): the
+//                transposed conv of R * G (both staged as they are, formed
+//                and split once per slice), times x, written or routed
+//                through the pool backward to the finer level. A tile's K
+//                clones are neighbours in the grid, so that G, x and apre
+//                come from L2 for all but the first.
+// The prep adds each k-step's products into its accumulators in f32
+// (conv3x3_tc.cuh FRESH): accumulated in the tensor core, the sum drifted
+// enough on the card to flip a z_true at 6e-7 of the map's maximum.
+//
+// Tiles. A block is 8 warps; a warp holds MF m-fragments of 16 pixels x 32
+// channels (MF x 4 mma tiles). WN = 4, 2 or 1 warps over the GEMM's N
+// (N > 64, > 32, else), the other 8 / WN over pixels, BN = 32 * WN channels
+// a block: an 8-wide tile of 2 * MF * 8 / WN rows. MF = 4 (a 64-pixel warp
+// tile, which loads each B fragment for 4 m-fragments) where WN > 1 and the
+// level is at least that tall, else 2, so that small levels are not
+// over-tiled; with WN = 1 a 4-fragment tile (64x8) would fit one block an
+// SM. Tiles and grids (prep: tiles x column blocks x b; apply: tiles x
+// column blocks x K, b) at the main path's shapes:
+//   3s b=256   16^2 64->64:  prep 16x8, 2x1x256 = 512;   apply 16x8, (2x1x4)x256 = 2048
+//              32^2 32->64:  prep 16x8, 8x1x256 = 2048;  apply 32x8, (4x1x4)x256 = 4096
+//              64^2 32->32:  prep 32x8, 16x1x256 = 4096; apply 32x8, (16x1x4)x256 = 16384
+//   6s b=64    8^2 128->128: prep 8x8, 1x2x64 = 128;     apply 8x8, (1x1x4)x64 = 256
+//              16^2 ->128:   prep 16x8, 2x2x64 = 256;    apply 16x8, (2x1x4)x64 = 512
+//              32^2 ->100:   prep 16x8, 8x2x64 = 1024;   apply 16x8, (8x1x4)x64 = 2048 (Ci 100)
+//              64^2 64->64:  prep 16x8, 32x1x64 = 2048;  apply 32x8, (16x1x4)x64 = 4096
+//   deep prep  128x256 64->64 (first_block_deep.cu): 16x8, 256x1x64 = 16384
+// Two blocks fit an SM (at most 113 KB of shared memory and 128 registers
+// each), so the 8^2 level (4% of the 6s chain's work) is one wave.
+//
+// Channel counts: multiples of 8 or of 20 up to 128 (8, 16, 32, 64, 100,
+// 128 in the repo's models); others are refused before any launch. The
+// reduction runs in slices of 8 (a short last slice is zero-filled) and the
+// apply's N pads to a multiple of 8 with zero taps (100 -> 104). Tensors
+// must be 16-byte aligned (cp.async).
 //
 // Bound on an H100: operations. Per instance the two forward convs and the
-// K transposed convs are 2*(2+K)*H*W*Ci*Co*9 flops against ~4*(K+1)*H*W*C
-// bytes of relevance, far above f32's 67 TFLOP/s / 3.35 TB/s balance. This
-// first version runs on the f32 FMA units (no tensor cores: LRP stays full
-// f32); each thread keeps OG output channels of one pixel in registers, the
-// input tile (with halo) and a CC-channel slice of the weights sit in shared
-// memory, and the weights are read as warp-wide broadcasts.
-//
-// Channel counts: OG is 16 where it divides the output count, else 20 (the
-// 6s model's 100-channel level: 5 groups, 320 threads), else 8; a block has
-// 64 * C/OG <= 1024 threads. The input channels are staged CC at a time and
-// a short last slice (4 of 100) is zero-filled.
+// K transposed convs are 2*(2+K)*H*W*Ci*Co*9 flops: 203 GFLOP per 3s request
+// at b=256, 414 GFLOP per 6s request at b=64, against a few hundred MB of
+// relevance and activations. On the tensor cores in 3xTF32 (495 / 3
+// TFLOP/s, the least time for f32-accurate products) that is 1.23 and
+// 2.51 ms; on the FMA units (67 TFLOP/s) 3.03 and 6.18 ms.
+// The design moves every product to the tensor cores and keeps their
+// feeding cheap: asynchronous staging, conflict-free ldmatrix loads of an
+// A operand split once per slice, 64-pixel warp tiles. mma.sync does not
+// reach the dense TF32 rate on Hopper (only wgmma does), so that rate, and
+// the instructions that feed it, bound these kernels; wgmma is the next
+// step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv3x3_tc.cuh"
 #include "lrp_common.cuh"
 
 namespace {
 
-constexpr int TH = 8, TW = 8, TP = TH * TW;
-constexpr int HW_ = TW + 2, HALO = (TH + 2) * (TW + 2);
-constexpr int CC = 8;
+using tc::CC;
+using tc::SP;
 
-// OG for a level of C channels, or 0 where the kernels take no such count.
-inline int group_of(int C) {
-  if (C > 128) return 0;
-  if (C % 16 == 0) return 16;
-  if (C % 20 == 0) return 20;
-  if (C % 8 == 0) return 8;
-  return 0;
+constexpr int THREADS = 256, TW = 8;
+
+// The channel counts the kernels take.
+inline bool takes(int C) { return C > 0 && C <= 128 && (C % 8 == 0 || C % 20 == 0); }
+
+inline int warps_n(int N) { return N > 64 ? 4 : (N > 32 ? 2 : 1); }
+
+// Rows of the tall tile (4 m-fragments a warp) for WN warps over the
+// columns: a level at least that tall takes it, a shorter one the 2-fragment
+// tile, so that no tile hangs far past the image. One warp over all the
+// columns always takes 2 fragments (a 64x8 tile would fit one block an SM).
+inline int tall_rows(int WN) { return 16 * 4 * (8 / WN) / TW; }
+
+// WN warps over the columns, MF m-fragments (16 pixels each) a warp.
+template <int WN, int MF_>
+struct Tile {
+  static constexpr int MF = MF_;
+  static constexpr int BM = 16 * MF * (8 / WN), TH = BM / TW, BN = 32 * WN;
+  static constexpr int RW = TW + 2, NQ = (TH + 2) * RW;  // staged: tile + 1-pixel halo
+  static constexpr int WS = BN + 8;
+  static constexpr int A = NQ * SP, B = 9 * CC * WS;      // floats per region / taps
+  // a stage: two regions (x and the split's lo, or R and G; split in place
+  // into hi and lo) and the taps
+  static constexpr int STAGE = 2 * A + B;
+};
+
+// This lane's ldmatrix rows of the warp's MF m-fragments; pixel m of the
+// tile sits at (m / TW, m % TW), region offset (m / TW) * RW + m % TW.
+template <class T>
+__device__ __forceinline__ void tile_rows(int (&lrow)[T::MF], int wm) {
+#pragma unroll
+  for (int i = 0; i < T::MF; ++i)
+    lrow[i] = tc::lane_row([&](int r) {
+      const int m = (wm * T::MF + i) * 16 + r;
+      return (m / TW) * T::RW + m % TW;
+    });
 }
 
-template <int OG>
-__global__ void gamma_prep_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ w,     // [9, Ci, 2*Co]
-                                  const float* __restrict__ bias,  // [3, Co]
-                                  const float* __restrict__ apre,  // [b, H, W, Co] or null
-                                  float* __restrict__ G,           // [b, H, W, Co]
-                                  int H, int W, int Ci, int Co, int kh, int kw,
-                                  float inv, float stab) {
-  extern __shared__ float smem[];
-  float* xs = smem;               // [CC][HALO]
-  float* ws = smem + CC * HALO;   // [9][CC][2*Co]
-  const int n = blockIdx.y;
+template <int WN, int MF>
+__global__ void __launch_bounds__(THREADS, 2)
+gamma_prep_kernel(const float* __restrict__ x,     // [b, H, W, Ci]
+                  const float* __restrict__ w,     // [nsl, 9, CC, 2*Co]
+                  const float* __restrict__ bias,  // [3, Co]
+                  const float* __restrict__ apre,  // [b, H, W, Co] or null
+                  float* __restrict__ G,           // [b, H, W, Co]
+                  int H, int W, int Ci, int Co, int kh, int kw, float inv, float stab) {
+  using T = Tile<WN, MF>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int N = 2 * Co, n = blockIdx.z, n0 = blockIdx.y * T::BN;
   const int tiles_w = (W + TW - 1) / TW;
-  const int h0 = (blockIdx.x / tiles_w) * TH, w0 = (blockIdx.x % tiles_w) * TW;
-  const int p = threadIdx.x % TP, o0 = (threadIdx.x / TP) * OG;
-  const int py = p / TW, px = p % TW;
-  const int Co2 = 2 * Co;
+  const int h0 = (blockIdx.x / tiles_w) * T::TH, w0 = (blockIdx.x % tiles_w) * TW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / WN, ncol = (warp % WN) * 32;
+  const int nfr = min(4, max(0, (N - n0 - ncol) / 8));
   const float* xn = x + (size_t)n * H * W * Ci;
-  float acc1[OG], acc3[OG];
-#pragma unroll
-  for (int j = 0; j < OG; ++j) acc1[j] = acc3[j] = 0.f;
+  int lrow[T::MF];
+  tile_rows<T>(lrow, wm);
+  float acc[T::MF][4][4] = {};
 
-  for (int c0 = 0; c0 < Ci; c0 += CC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < CC * HALO; e += blockDim.x) {
-      const int c = e % CC, q = e / CC;
-      const int hh = h0 + q / HW_ - 1, ww = w0 + q % HW_ - 1;
-      float v = 0.f;
-      if (c0 + c < Ci && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = fmaxf(xn[((size_t)hh * W + ww) * Ci + c0 + c], 0.f);
-      xs[c * HALO + q] = v;
-    }
-    lrp::stage_taps<CC>(ws, w, c0, Ci, Co2);
-    __syncthreads();
-    for (int t = 0; t < 9; ++t) {
-      const float* xr = xs + (py + t / 3) * HW_ + px + t % 3;
-      for (int c = 0; c < CC; ++c) {
-        const float v = xr[c * HALO];
-        const float* wr = ws + (t * CC + c) * Co2 + o0;
+  tc::pipeline(
+      (Ci + CC - 1) / CC,
+      [&](int s) {
+        float* buf = smem + (s & 1) * T::STAGE;
+        tc::stage_region(buf, xn, T::TH + 2, T::RW, h0 - 1, w0 - 1, H, W, Ci, s * CC);
+        tc::stage_taps<T::BN>(buf + 2 * T::A, w, s, N, n0);
+        tc::cp_commit();
+      },
+      [&](int s) {
+        float* buf = smem + (s & 1) * T::STAGE;     // x, then hi; lo
+        tc::split_region(buf, buf + T::A, T::NQ, [&](int q, int c4) {
+          return tc::relu4(*reinterpret_cast<const float4*>(buf + q * SP + c4));
+        });
+        __syncthreads();
+        tc::slice_mma<T::MF, 4, true>(acc, buf, buf + T::A, lrow, T::RW, buf + 2 * T::A, T::WS,
+                                      ncol, nfr);
+      });
+
+  const float* an = apre != nullptr ? apre + (size_t)n * H * W * Co : nullptr;
 #pragma unroll
-        for (int j = 0; j < OG; ++j) {
-          acc1[j] = fmaf(v, wr[j], acc1[j]);
-          acc3[j] = fmaf(v, wr[Co + j], acc3[j]);
-        }
+  for (int i = 0; i < T::MF; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = (wm * T::MF + i) * 16 + g + hf * 8;
+      const int h = h0 + m / TW, ww = w0 + m % TW;
+      if (h >= H || ww >= W) continue;
+      const int wh = h - h % kh, wv = ww - ww % kw, me = (h - wh) * kw + (ww - wv);
+      float* gp = G + (((size_t)n * H + h) * W + ww) * Co;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nfr) continue;
+        const int o = (n0 + ncol + j * 8 + t4 * 2) >> 1;
+        const float b1 = bias[o], b0 = bias[Co + o], b2 = bias[2 * Co + o];
+        const float z1 = __fadd_rn(acc[i][j][2 * hf], b1);
+        const float zt = __fadd_rn(
+            __fmul_rn(__fsub_rn(__fadd_rn(z1, acc[i][j][2 * hf + 1]), b1), inv), b0);
+        float v = zt > 0.f ? __fdiv_rn(1.0f, lrp::stabilize(__fadd_rn(z1, b2), stab)) : 0.f;
+        if (an != nullptr && v != 0.f &&
+            lrp::route(an + ((size_t)wh * W + wv) * Co + o, kh, kw, W * Co, Co) != me)
+          v = 0.f;
+        gp[o] = v;
       }
     }
-  }
-  const int h = h0 + py, ww = w0 + px;
-  if (h >= H || ww >= W) return;
-  float* g = G + (((size_t)n * H + h) * W + ww) * Co + o0;
-  const int wh = h - h % kh, wv = ww - ww % kw, me = (h - wh) * kw + (ww - wv);
-  const float* an = apre != nullptr ? apre + (size_t)n * H * W * Co + o0 : nullptr;
-#pragma unroll
-  for (int j = 0; j < OG; ++j) {
-    const float b1 = bias[o0 + j], b0 = bias[Co + o0 + j], b2 = bias[2 * Co + o0 + j];
-    const float z1 = __fadd_rn(acc1[j], b1);
-    const float zt = __fadd_rn(
-        __fmul_rn(__fsub_rn(__fadd_rn(z1, acc3[j]), b1), inv), b0);
-    float v = zt > 0.f ? __fdiv_rn(1.0f, lrp::stabilize(__fadd_rn(z1, b2), stab)) : 0.f;
-    if (apre != nullptr && v != 0.f &&
-        lrp::route(an + ((size_t)wh * W + wv) * Co + j, kh, kw, W * Co, Co) != me)
-      v = 0.f;
-    g[j] = v;
-  }
 }
 
-template <int OG>
-__global__ void gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H, W, Co]
-                                   const float* __restrict__ G,     // [b, H, W, Co]
-                                   const float* __restrict__ x,     // [b, H, W, Ci]
-                                   const float* __restrict__ wt,    // [9, Co, Ci]
-                                   const float* __restrict__ apre,  // [b, H*kh, W*kw, Ci] or null
-                                   float* __restrict__ out,
-                                   int K, int H, int W, int Ci, int Co, int kh,
-                                   int kw) {
-  extern __shared__ float smem[];
-  float* ss = smem;               // [CC][HALO]
-  float* ws = smem + CC * HALO;   // [9][CC][Ci]
-  const int n = blockIdx.z, k = blockIdx.y;
+template <int WN, int MF>
+__global__ void __launch_bounds__(THREADS, 2)
+gamma_apply_kernel(const float* __restrict__ R,     // [b, K, H, W, Co]
+                   const float* __restrict__ G,     // [b, H, W, Co]
+                   const float* __restrict__ x,     // [b, H, W, Ci]
+                   const float* __restrict__ wt,    // [nsl, 9, CC, Np]
+                   const float* __restrict__ apre,  // [b, H*kh, W*kw, Ci] or null
+                   float* __restrict__ out, int K, int H, int W, int Ci, int Co, int kh,
+                   int kw) {
+  using T = Tile<WN, MF>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int Np = (Ci + 7) & ~7, nblk = (Np + T::BN - 1) / T::BN;
+  // the K clones of a (tile, column block) are neighbours in the grid, so
+  // that G, x and apre come from L2 for all but the first
+  const int n = blockIdx.y, k = blockIdx.x % K, col = blockIdx.x / K;
+  const int n0 = (col % nblk) * T::BN, tile = col / nblk;
   const int tiles_w = (W + TW - 1) / TW;
-  const int h0 = (blockIdx.x / tiles_w) * TH, w0 = (blockIdx.x % tiles_w) * TW;
-  const int p = threadIdx.x % TP, o0 = (threadIdx.x / TP) * OG;
-  const int py = p / TW, px = p % TW;
+  const int h0 = (tile / tiles_w) * T::TH, w0 = (tile % tiles_w) * TW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / WN, ncol = (warp % WN) * 32;
+  const int nfr = min(4, max(0, (Np - n0 - ncol) / 8));
   const float* Rn = R + ((size_t)n * K + k) * H * W * Co;
   const float* Gn = G + (size_t)n * H * W * Co;
-  float acc[OG];
-#pragma unroll
-  for (int j = 0; j < OG; ++j) acc[j] = 0.f;
+  int lrow[T::MF];
+  tile_rows<T>(lrow, wm);
+  float acc[T::MF][4][4] = {};
 
-  for (int c0 = 0; c0 < Co; c0 += CC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < CC * HALO; e += blockDim.x) {
-      const int c = e % CC, q = e / CC;
-      const int hh = h0 + q / HW_ - 1, ww = w0 + q % HW_ - 1;
-      float v = 0.f;
-      if (c0 + c < Co && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        const size_t i = ((size_t)hh * W + ww) * Co + c0 + c;
-        v = __fmul_rn(Rn[i], Gn[i]);
-      }
-      ss[c * HALO + q] = v;
-    }
-    lrp::stage_taps<CC>(ws, wt, c0, Co, Ci);
-    __syncthreads();
-    for (int t = 0; t < 9; ++t) {
-      const float* sr = ss + (py + t / 3) * HW_ + px + t % 3;
-      for (int c = 0; c < CC; ++c) {
-        const float v = sr[c * HALO];
-        const float* wr = ws + (t * CC + c) * Ci + o0;
-#pragma unroll
-        for (int j = 0; j < OG; ++j) acc[j] = fmaf(v, wr[j], acc[j]);
-      }
-    }
-  }
-  const int h = h0 + py, ww = w0 + px;
-  if (h >= H || ww >= W) return;
-  const float* xp = x + (((size_t)n * H + h) * W + ww) * Ci + o0;
-  if (apre == nullptr) {
-    float* o = out + ((((size_t)n * K + k) * H + h) * W + ww) * Ci + o0;
-#pragma unroll
-    for (int j = 0; j < OG; ++j) o[j] = __fmul_rn(xp[j], acc[j]);
-    return;
-  }
-  // pool backward: the whole value goes to the first maximum of relu(apre)
-  // in row-major window order; the other window positions get 0
+  tc::pipeline(
+      (Co + CC - 1) / CC,
+      [&](int s) {
+        float* buf = smem + (s & 1) * T::STAGE;
+        tc::stage_region(buf, Rn, T::TH + 2, T::RW, h0 - 1, w0 - 1, H, W, Co, s * CC);
+        tc::stage_region(buf + T::A, Gn, T::TH + 2, T::RW, h0 - 1, w0 - 1, H, W, Co, s * CC);
+        tc::stage_taps<T::BN>(buf + 2 * T::A, wt, s, Np, n0);
+        tc::cp_commit();
+      },
+      [&](int s) {
+        float* buf = smem + (s & 1) * T::STAGE;     // R, then hi; G, then lo
+        tc::split_region(buf, buf + T::A, T::NQ, [&](int q, int c4) {
+          return tc::mul4(*reinterpret_cast<const float4*>(buf + q * SP + c4),
+                          *reinterpret_cast<const float4*>(buf + T::A + q * SP + c4));
+        });
+        __syncthreads();
+        tc::slice_mma<T::MF, 4, false>(acc, buf, buf + T::A, lrow, T::RW, buf + 2 * T::A, T::WS,
+                                       ncol, nfr);
+      });
+
   const int Hf = H * kh, Wf = W * kw;
-  const float* an = apre + (size_t)n * Hf * Wf * Ci;
+  const float* an = apre != nullptr ? apre + (size_t)n * Hf * Wf * Ci : nullptr;
   float* on = out + ((size_t)n * K + k) * Hf * Wf * Ci;
 #pragma unroll
-  for (int j = 0; j < OG; ++j) {
-    const float val = __fmul_rn(xp[j], acc[j]);
-    const int win =
-        lrp::route(an + (((size_t)h * kh) * Wf + ww * kw) * Ci + o0 + j, kh, kw, Wf * Ci, Ci);
-    for (int r = 0; r < kh; ++r)
-      for (int s = 0; s < kw; ++s)
-        on[(((size_t)h * kh + r) * Wf + ww * kw + s) * Ci + o0 + j] =
-            (r * kw + s == win) ? val : 0.f;
-  }
+  for (int i = 0; i < T::MF; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = (wm * T::MF + i) * 16 + g + hf * 8;
+      const int h = h0 + m / TW, ww = w0 + m % TW;
+      if (h >= H || ww >= W) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ci = n0 + ncol + j * 8 + t4 * 2;
+        if (j >= nfr || ci >= Ci) continue;
+        const float2 xv = *reinterpret_cast<const float2*>(
+            x + (((size_t)n * H + h) * W + ww) * Ci + ci);
+        const float v0 = __fmul_rn(xv.x, acc[i][j][2 * hf]);
+        const float v1 = __fmul_rn(xv.y, acc[i][j][2 * hf + 1]);
+        if (an == nullptr) {
+          *reinterpret_cast<float2*>(on + ((size_t)h * W + ww) * Ci + ci) = make_float2(v0, v1);
+          continue;
+        }
+        // pool backward: the whole value goes to the first maximum of
+        // relu(apre) in row-major window order; the other positions get 0
+        const float* a = an + (((size_t)h * kh) * Wf + ww * kw) * Ci + ci;
+        const int win0 = lrp::route(a, kh, kw, Wf * Ci, Ci);
+        const int win1 = lrp::route(a + 1, kh, kw, Wf * Ci, Ci);
+        for (int r = 0; r < kh; ++r)
+          for (int s = 0; s < kw; ++s)
+            *reinterpret_cast<float2*>(on + (((size_t)h * kh + r) * Wf + ww * kw + s) * Ci + ci) =
+                make_float2(r * kw + s == win0 ? v0 : 0.f, r * kw + s == win1 ? v1 : 0.f);
+      }
+    }
 }
 
-template <int OG>
-cudaError_t launch_prep(dim3 grid, int threads, size_t bytes, cudaStream_t s,
-                        const float* x, const float* w, const float* bias,
-                        const float* apre, float* G, int H, int W, int Ci, int Co,
-                        int kh, int kw, float inv, float stab) {
-  cudaError_t err = lrp::set_smem(gamma_prep_kernel<OG>, bytes);
+template <int WN, int MF>
+cudaError_t launch_prep(int b, cudaStream_t st, const float* x, const float* w,
+                        const float* bias, const float* apre, float* G, int H, int W, int Ci,
+                        int Co, int kh, int kw, float inv, float stab) {
+  using T = Tile<WN, MF>;
+  const dim3 grid(((H + T::TH - 1) / T::TH) * ((W + TW - 1) / TW),
+                  (2 * Co + T::BN - 1) / T::BN, b);
+  const size_t bytes = sizeof(float) * 2 * T::STAGE;
+  cudaError_t err = lrp::set_smem(gamma_prep_kernel<WN, MF>, bytes);
   if (err != cudaSuccess) return err;
-  gamma_prep_kernel<OG><<<grid, threads, bytes, s>>>(x, w, bias, apre, G, H, W, Ci, Co,
-                                                     kh, kw, inv, stab);
+  gamma_prep_kernel<WN, MF><<<grid, THREADS, bytes, st>>>(x, w, bias, apre, G, H, W, Ci, Co, kh,
+                                                      kw, inv, stab);
   return cudaGetLastError();
 }
 
-template <int OG>
-cudaError_t launch_apply(dim3 grid, int threads, size_t bytes, cudaStream_t s,
-                         const float* R, const float* G, const float* x,
-                         const float* wt, const float* apre, float* out, int K,
+template <int WN, int MF>
+cudaError_t launch_apply(int b, cudaStream_t st, const float* R, const float* G,
+                         const float* x, const float* wt, const float* apre, float* out, int K,
                          int H, int W, int Ci, int Co, int kh, int kw) {
-  cudaError_t err = lrp::set_smem(gamma_apply_kernel<OG>, bytes);
+  using T = Tile<WN, MF>;
+  const int nblk = (((Ci + 7) & ~7) + T::BN - 1) / T::BN;
+  const dim3 grid(((H + T::TH - 1) / T::TH) * ((W + TW - 1) / TW) * nblk * K, b);
+  const size_t bytes = sizeof(float) * 2 * T::STAGE;
+  cudaError_t err = lrp::set_smem(gamma_apply_kernel<WN, MF>, bytes);
   if (err != cudaSuccess) return err;
-  gamma_apply_kernel<OG><<<grid, threads, bytes, s>>>(R, G, x, wt, apre, out, K, H,
-                                                      W, Ci, Co, kh, kw);
+  gamma_apply_kernel<WN, MF><<<grid, THREADS, bytes, st>>>(R, G, x, wt, apre, out, K, H, W, Ci, Co,
+                                                       kh, kw);
   return cudaGetLastError();
 }
 
@@ -227,44 +311,46 @@ cudaError_t launch_apply(dim3 grid, int threads, size_t bytes, cudaStream_t s,
 
 extern "C" {
 
-// Phase 1. x [b,H,W,Ci] (read as relu(x)), w [9,Ci,2Co], bias [3,Co],
+// Phase 1. x [b,H,W,Ci] (read as relu(x)), w [ceil(Ci/8),9,8,2Co] (the
+// interleaved forward pair, xai/lrp/chain.py GammaConv.w_prep), bias [3,Co],
 // G [b,H,W,Co]; apre [b,H,W,Co] or NULL: G is zeroed off the first-argmax
-// route of relu(apre) over (kh, kw) windows (H % kh == W % kw == 0). Needs
-// group_of(Co) != 0. Returns cudaGetLastError().
+// route of relu(apre) over (kh, kw) windows (H % kh == W % kw == 0).
+// Returns cudaErrorInvalidValue, before any launch, for channel counts the
+// kernel does not take or unaligned tensors; else cudaGetLastError().
 int chain_gamma_prep(const float* x, const float* w, const float* bias,
                      const float* apre, float* G, int b, int H, int W, int Ci,
                      int Co, int kh, int kw, float inv, float stab, void* stream) {
-  const int og = group_of(Co);
-  if (og == 0) return cudaErrorInvalidValue;
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), b);
-  const int threads = TP * (Co / og);
-  const size_t bytes = sizeof(float) * (CC * HALO + 9 * CC * 2 * Co);
+  if (!takes(Ci) || !takes(Co) || !tc::aligned16(x) || !tc::aligned16(w))
+    return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (og == 16)
-    return launch_prep<16>(grid, threads, bytes, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
-  if (og == 20)
-    return launch_prep<20>(grid, threads, bytes, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
-  return launch_prep<8>(grid, threads, bytes, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
+#define PREP(WN, MF) launch_prep<WN, MF>(b, s, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab)
+  switch (warps_n(2 * Co)) {
+    case 4: return H >= tall_rows(4) ? PREP(4, 4) : PREP(4, 2);
+    case 2: return H >= tall_rows(2) ? PREP(2, 4) : PREP(2, 2);
+    default: return PREP(1, 2);
+  }
+#undef PREP
 }
 
-// Phase 2. R [b,K,H,W,Co], G [b,H,W,Co], x [b,H,W,Ci], wt [9,Co,Ci];
-// apre [b,H*kh,W*kw,Ci] or NULL; out [b,K,H,W,Ci] (no pool) or
-// [b,K,H*kh,W*kw,Ci]. Needs group_of(Ci) != 0.
+// Phase 2. R [b,K,H,W,Co], G [b,H,W,Co], x [b,H,W,Ci], wt
+// [ceil(Co/8),9,8,Np] (the transposed w + g*w+, Np = Ci rounded up to 8,
+// GammaConv.w_apply_tc); apre [b,H*kh,W*kw,Ci] or NULL; out [b,K,H,W,Ci]
+// (no pool) or [b,K,H*kh,W*kw,Ci]. Refusals as phase 1.
 int chain_gamma_apply(const float* R, const float* G, const float* x,
                       const float* wt, const float* apre, float* out, int b,
                       int K, int H, int W, int Ci, int Co, int kh, int kw,
                       void* stream) {
-  const int og = group_of(Ci);
-  if (og == 0) return cudaErrorInvalidValue;
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), K, b);
-  const int threads = TP * (Ci / og);
-  const size_t bytes = sizeof(float) * (CC * HALO + 9 * CC * Ci);
+  if (!takes(Ci) || !takes(Co) || !tc::aligned16(R) || !tc::aligned16(G) ||
+      !tc::aligned16(wt) || !tc::aligned16(x) || !tc::aligned16(out))
+    return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (og == 16)
-    return launch_apply<16>(grid, threads, bytes, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
-  if (og == 20)
-    return launch_apply<20>(grid, threads, bytes, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
-  return launch_apply<8>(grid, threads, bytes, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
+#define APPLY(WN, MF) launch_apply<WN, MF>(b, s, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw)
+  switch (warps_n((Ci + 7) & ~7)) {
+    case 4: return H >= tall_rows(4) ? APPLY(4, 4) : APPLY(4, 2);
+    case 2: return H >= tall_rows(2) ? APPLY(2, 4) : APPLY(2, 2);
+    default: return APPLY(1, 2);
+  }
+#undef APPLY
 }
 
 }  // extern "C"

@@ -15,133 +15,238 @@
 // route is the first maximum of each pool window in row-major order (strict
 // >, so an all-tied window routes to its first position). G = [z_true > 0] /
 // stab(z1 + b2) is the clone-shared multiplier of the gamma rule. Both are
-// clone-shared, so chain_gamma_prep (csrc/chain_block.cu) writes their
-// product M = G * route once per instance, from relu(a1) and apre. The relu
-// gate on s and the gamma rule's convT(s * m3) term cancel as in
-// chain_block.cu (m3 != 0 only where the gate is 0), so neither is formed.
+// clone-shared, so chain_gamma_prep (csrc/chain_block.cu, on the tensor
+// cores) writes their product M = G * route once per instance, from relu(a1)
+// and apre. The relu gate on s and the gamma rule's convT(s * m3) term
+// cancel as in chain_block.cu (m3 != 0 only where the gate is 0), so
+// neither is formed.
 //
-// One thread block per (16x16 output tile, clone, instance). Per C-channel
-// slice of CC, the block stages R * M over the tile plus a 2-pixel halo in
-// shared memory; each thread accumulates OG output channels of a column of
-// PY pixels of the tile plus a 1-pixel halo (18x18 pixels: 18 columns x 3
-// strips x C0/OG channel groups), so every staged value and every weight it
-// loads feeds PY*OG or 3*PY multiply-adds (lrp::convt_column). Then each
-// thread forms s0 for its pixels and channels and reduces them against the 9
-// tail taps into shared
-// memory, and the tile's pixels sum the 3x3 neighbourhood over the groups.
-// Zeros outside the image reproduce SAME padding. The fine relevance Rn
-// never reaches device memory.
+// One thread block (8 warps) per (16x16 output tile, clone, instance), a
+// tile's K clones neighbours in the grid (M and a1 come from L2 for all but
+// the first); two blocks an SM. The transposed conv runs through the
+// tensor-core core of conv3x3_tc.cuh (3xTF32 implicit GEMM): per slice of 8
+// of the C channels, cp.async stages R at its coarse level (10 x 6 or
+// 10 x 10 pixels) and M over the tile plus a 1-pixel halo (18x18), and the
+// taps, while the previous slice multiplies; R * M is formed at each fine
+// pixel from its coarse R and split once. The GEMM's M runs over the
+// tile's 256 pixels only (no halo is recomputed), N over the C0 = 64
+// channels: each warp holds 2 m-fragments x 8 n-fragments. The epilogue
+// works on the accumulator fragments: relu(a1) * acc, s0, the 9 tail taps
+// summed over the thread's 16 channels, a shuffle across the 4 threads of a
+// fragment row (all 64 channels), then, per pixel of the tile and its
+// 1-pixel rim, the tile's share of the 3x3 neighbourhood sum. A pixel of the
+// tile's 14x14 interior has all of its sum and is written to the heatmaps.
+// The other 128 shares (the tile's outer ring and the rim around it) go to
+// a scratch array, and a second launch (first_block_deep_rim) adds, for
+// each ring pixel, the shares of the tiles around it in a fixed order: the
+// heatmaps are the same bits from run to run. Zeros outside the image
+// reproduce SAME padding. The fine relevance Rn never reaches device memory.
+//
+// Shared memory: the taps (9 x 64), the split's lo (324 x 12) and two
+// stages of coarse R, M and the weights (72 x 72): 100 KB; 118 registers.
 //
 // Bound on an H100: operations. Per instance the K transposed convs at the
-// fine level are 2*K*H*W*C*C0*9 flops (the prep's two forward convs add
-// 2*2*H*W*C0*C*9), against ~4*(K*H*W*C/(kh*kw) + 2*H*W*C + H*W*C0) bytes:
-// at the 6s shapes (128x256, 64 -> 64, K=4) ~14.6 GFLOP against ~26 MB per
-// clip, far above f32's 67 TFLOP/s / 3.35 TB/s balance. This version runs
-// on the f32 FMA units (no tensor cores: LRP stays full f32) and pays
-// (18*18)/(16*16) = 1.27x the transposed conv's work for the halo.
+// fine level are 2*K*H*W*C*C0*9 flops and the prep's two forward convs
+// 2*2*H*W*C0*C*9, against ~4*(K*H*W*C/(kh*kw) + 2*H*W*C + H*W*C0) bytes: at
+// the 6s shapes (128x256, 64 -> 64, K=4, b=64) 928 GFLOP, 5.63 ms on the
+// tensor cores in 3xTF32 (495 / 3 TFLOP/s, the least time for f32-accurate
+// products; 13.99 ms on the FMA units at 67 TFLOP/s). The design puts both
+// the prep and the transposed conv on the tensor cores, and trades the
+// 1.27x halo recompute of a 16x16 tile for a scratch of 128 floats a tile
+// and clone (16.8 MB at b=64, K=4) and a short second launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv3x3_tc.cuh"
 #include "lrp_common.cuh"
 
 namespace {
 
-constexpr int TH = 16, TW = 16;                 // output tile
-constexpr int RW = TW + 2, NR = (TH + 2) * RW;  // Rn region: tile + 1 halo
-constexpr int PY = 6;                           // Rn pixels per thread (a column)
-constexpr int TPG = RW * (TH + 2) / PY;         // threads per channel group (54)
-constexpr int SW = TW + 4, NS = (TH + 4) * SW;  // R*M region: tile + 2 halo
-constexpr int CC = 8;                           // C channels per slice
-constexpr int OG = 8;                           // output channels per thread
-constexpr int MAX_THREADS = TPG * 64 / OG;
+using tc::CC;
+using tc::SP;
 
-__global__ void __launch_bounds__(MAX_THREADS)
+constexpr int THREADS = 256;
+constexpr int TH = 16, TW = 16;                      // output tile = the GEMM's 256 rows
+constexpr int SW = TW + 2, NS = (TH + 2) * SW;       // R*M region: tile + 1 halo
+constexpr int MF = 2, NF = 8, BN = 64, WS = BN + 8;  // per warp: 32 pixels x 64 channels
+constexpr int TP = 9 * 64;                           // tail taps, floats
+constexpr int CRH = TH / 2 + 2, CRW = TW / 2 + 2;    // coarse R region (kh = 2, kw >= 2)
+constexpr int A = NS * SP, B = 9 * CC * WS, AC = CRH * CRW * SP;
+constexpr int STAGE = AC + A + B;                    // coarse R, M (then hi), the taps
+constexpr int NT = TH * TW;
+constexpr int NR = 4 * SW + 4 * (TH - 2);            // shares kept for the rim pass
+constexpr int NRING = 2 * TW + 2 * (TH - 2);         // a tile's outer ring
+static_assert(8 * MF * 16 == NT, "the warps' fragments cover the tile");
+static_assert(9 * NT <= 2 * STAGE, "the tail sums reuse the staging buffers");
+
+// The rim slot of position (oy, ox) of a tile's (TH + 2) x (TW + 2) region
+// (pixel (h0 - 1 + oy, w0 - 1 + ox)): rows 0, 1, TH, TH + 1 whole, then
+// columns 0, 1, TW, TW + 1 of the rows between; -1 for the 14x14 interior,
+// whose 3x3 neighbourhoods lie in the tile.
+__device__ __forceinline__ int rim_slot(int oy, int ox) {
+  if (oy < 2) return oy * SW + ox;
+  if (oy >= TH) return (oy - TH + 2) * SW + ox;
+  if (ox >= 2 && ox < TW) return -1;
+  return 4 * SW + (oy - 2) * 4 + (ox < 2 ? ox : ox - TW + 2);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 first_block_deep_kernel(const float* __restrict__ R,      // [b, K, H/kh, W/kw, C]
                         const float* __restrict__ M,      // [b, H, W, C]
                         const float* __restrict__ a1,     // [b, H, W, C0]
-                        const float* __restrict__ wt,     // [9, C, C0]
+                        const float* __restrict__ wt,     // [ceil(C/8), 9, 8, C0]
                         const float* __restrict__ z0,     // [H, W, C0]
                         const float* __restrict__ taps,   // [9, C0]
                         float* __restrict__ heat,         // [b, K, H, W]
-                        int K, int H, int W, int C0, int C, int kh, int kw,
-                        float stab0) {
+                        float* __restrict__ rim,          // [b, K, tiles, NR]
+                        int K, int H, int W, int C0, int C, int kw, float stab0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ng = C0 / OG;
   float* tp = smem;                   // [9][C0]
-  float* ss = tp + 9 * C0;            // [CC][NS]
-  float* ws = ss + CC * NS;           // [9][CC][C0]
-  float* u = ss;                      // [ng][9][NR], after the main loop
-  const int n = blockIdx.z, k = blockIdx.y;
+  float* lo = smem + TP;              // the split's lo [NS][SP]
+  float* stg = lo + A;                // 2 stages
+  float* u = stg;                     // [9][NT], after the main loop
+  const int n = blockIdx.y, k = blockIdx.x % K, tile = blockIdx.x / K;
   const int tiles_w = (W + TW - 1) / TW;
-  const int h0 = (blockIdx.x / tiles_w) * TH, w0 = (blockIdx.x % tiles_w) * TW;
-  const int g = threadIdx.x / TPG, l = threadIdx.x % TPG;
-  const int x = l % RW, y0 = (l / RW) * PY, o0 = g * OG;
-  const int Hc = H / kh, Wc = W / kw;
+  const int h0 = (tile / tiles_w) * TH, w0 = (tile % tiles_w) * TW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int nfr = C0 / 8;
+  // kh = 2, kw = 2 or 4: coarse indices by shifts (floor; at the image's
+  // upper-left edge M is 0 and the index stays inside the region)
+  const int kws = kw == 4 ? 2 : 1, crw = (TW >> kws) + 2;
+  const int Hc = H >> 1, Wc = W >> kws, cy0 = (h0 >> 1) - 1, cx0 = (w0 >> kws) - 1;
   const float* Rk = R + ((size_t)n * K + k) * Hc * Wc * C;
   const float* Mn = M + (size_t)n * H * W * C;
-  for (int e = threadIdx.x; e < 9 * C0; e += blockDim.x) tp[e] = taps[e];
-  float acc[PY][OG];
-#pragma unroll
-  for (int i = 0; i < PY; ++i)
-#pragma unroll
-    for (int j = 0; j < OG; ++j) acc[i][j] = 0.f;
+  for (int e = threadIdx.x; e < 9 * C0; e += THREADS) tp[e] = taps[e];
 
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < CC * NS; e += blockDim.x) {
-      const int c = e % CC, r = e / CC;
-      const int hh = h0 - 2 + r / SW, ww = w0 - 2 + r % SW;
-      const int ch = c0 + c;
-      float v = 0.f;
-      if (ch < C && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        const float m = Mn[((size_t)hh * W + ww) * C + ch];
-        if (m != 0.f) v = __fmul_rn(Rk[((size_t)(hh / kh) * Wc + ww / kw) * C + ch], m);
-      }
-      ss[c * NS + r] = v;
-    }
-    lrp::stage_taps<CC>(ws, wt, c0, C, C0);
-    __syncthreads();
-    lrp::convt_column<PY, CC, SW, NS>(acc, ss, ws, C0, y0, x, o0);
-  }
-  __syncthreads();                    // u reuses the staging buffers
+  // ldmatrix rows: tile pixel m at (m / TW, m % TW), offset in the R*M region
+  int lrow[MF];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+    lrow[i] = tc::lane_row([&](int r) {
+      const int m = (warp * MF + i) * 16 + r;
+      return (m / TW) * SW + m % TW;
+    });
+  float acc[MF][NF][4] = {};
 
-  // relu(a1) and the tail multiplier, then this thread's channels against
-  // the 9 tail taps, per pixel
-  const int w = w0 - 1 + x;
+  tc::pipeline(
+      (C + CC - 1) / CC,
+      [&](int s) {
+        float* buf = stg + (s & 1) * STAGE;
+        tc::stage_region(buf, Rk, CRH, crw, cy0, cx0, Hc, Wc, C, s * CC);
+        tc::stage_region(buf + AC, Mn, TH + 2, SW, h0 - 1, w0 - 1, H, W, C, s * CC);
+        tc::stage_taps<BN>(buf + AC + A, wt, s, C0, 0);
+        tc::cp_commit();
+      },
+      [&](int s) {
+        float* buf = stg + (s & 1) * STAGE;
+        float* mh = buf + AC;               // M, then hi
+        // R * M at each fine pixel, R read from its coarse pixel
+        tc::split_region(mh, lo, NS, [&](int q, int c4) {
+          const int cy = ((h0 - 1 + q / SW) >> 1) - cy0, cx = ((w0 - 1 + q % SW) >> kws) - cx0;
+          return tc::mul4(*reinterpret_cast<const float4*>(buf + (cy * crw + cx) * SP + c4),
+                          *reinterpret_cast<const float4*>(mh + q * SP + c4));
+        });
+        __syncthreads();
+        tc::slice_mma<MF, NF, false>(acc, mh, lo, lrow, SW, buf + AC + A, WS, 0, nfr);
+      });
+  // the pipeline ends with a barrier: u may reuse the staging buffers
+
+  // relu(a1) and the tail multiplier, then this thread's 16 channels against
+  // the 9 tail taps, per pixel; the 4 threads of a fragment row hold its 64
+  // channels between them
 #pragma unroll
-  for (int i = 0; i < PY; ++i) {
-    float part[9];
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-    for (int t = 0; t < 9; ++t) part[t] = 0.f;
-    const int h = h0 - 1 + y0 + i;
-    if (h >= 0 && h < H && w >= 0 && w < W) {
-      const float* ap = a1 + (((size_t)n * H + h) * W + w) * C0 + o0;
-      const float* zp = z0 + ((size_t)h * W + w) * C0 + o0;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = (warp * MF + i) * 16 + g + hf * 8;
+      const int h = h0 + m / TW, w = w0 + m % TW;
+      float part[9];
 #pragma unroll
-      for (int j = 0; j < OG; ++j) {
-        const float a = ap[j];
-        const float rn = __fmul_rn(fmaxf(a, 0.f), acc[i][j]);
-        const float s0 =
-            __fmul_rn(rn, __fdiv_rn(lrp::relu_gate(a), lrp::stabilize(zp[j], stab0)));
+      for (int t = 0; t < 9; ++t) part[t] = 0.f;
+      if (h < H && w < W) {
+        const float* ap = a1 + (((size_t)n * H + h) * W + w) * C0;
+        const float* zp = z0 + ((size_t)h * W + w) * C0;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) part[t] = fmaf(s0, tp[t * C0 + o0 + j], part[t]);
+        for (int j = 0; j < NF; ++j) {
+          if (j >= nfr) continue;
+          const int c = j * 8 + t4 * 2;
+          const float2 a2 = *reinterpret_cast<const float2*>(ap + c);
+          const float2 z2 = *reinterpret_cast<const float2*>(zp + c);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = e ? a2.y : a2.x, z = e ? z2.y : z2.x;
+            const float rn = __fmul_rn(fmaxf(a, 0.f), acc[i][j][2 * hf + e]);
+            const float s0 = __fmul_rn(rn, __fdiv_rn(lrp::relu_gate(a), lrp::stabilize(z, stab0)));
+#pragma unroll
+            for (int t = 0; t < 9; ++t) part[t] = fmaf(s0, tp[t * C0 + c + e], part[t]);
+          }
+        }
       }
-    }
 #pragma unroll
-    for (int t = 0; t < 9; ++t) u[(g * 9 + t) * NR + (y0 + i) * RW + x] = part[t];
-  }
+      for (int t = 0; t < 9; ++t) {
+        part[t] += __shfl_xor_sync(0xffffffffu, part[t], 1);
+        part[t] += __shfl_xor_sync(0xffffffffu, part[t], 2);
+      }
+      if (t4 == 0)
+#pragma unroll
+        for (int t = 0; t < 9; ++t) u[t * NT + m] = part[t];
+    }
   __syncthreads();
-  for (int p = threadIdx.x; p < TH * TW; p += blockDim.x) {
-    const int oy = p / TW, ox = p % TW;
-    if (h0 + oy >= H || w0 + ox >= W) continue;
+  // heat[h, w] = sum_{dy, dx} u[dy * 3 + dx][h + dy - 1, w + dx - 1]: this
+  // tile's share of the tile and its 1-pixel rim; the interior's is the
+  // whole sum, the rest goes to the rim pass
+  const size_t nk = (size_t)n * K + k;
+  float* rim_t = rim + (nk * (gridDim.x / K) + tile) * NR;
+  for (int o = threadIdx.x; o < (TH + 2) * SW; o += THREADS) {
+    const int oy = o / SW, ox = o % SW;
     float sum = 0.f;
-    for (int gg = 0; gg < ng; ++gg)
-      for (int t = 0; t < 9; ++t)
-        sum += u[(gg * 9 + t) * NR + (oy + t / 3) * RW + ox + t % 3];
-    heat[(((size_t)n * K + k) * H + h0 + oy) * W + w0 + ox] = sum;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int py = oy + t / 3 - 2, px = ox + t % 3 - 2;
+      if (py >= 0 && py < TH && px >= 0 && px < TW) sum += u[t * NT + py * TW + px];
+    }
+    const int r = rim_slot(oy, ox);
+    const int h = h0 - 1 + oy, w = w0 - 1 + ox;
+    if (r >= 0)
+      rim_t[r] = sum;
+    else if (h < H && w < W)
+      heat[(nk * H + h) * W + w] = sum;
   }
+}
+
+// Each pixel of a tile's outer ring: the shares of the (up to 4) tiles
+// whose region holds it, added in the fixed order of the tiles' offsets.
+__global__ void __launch_bounds__(256)
+first_block_deep_rim(const float* __restrict__ rim, float* __restrict__ heat, int H, int W,
+                     int tiles_w, int n_tiles, long long total) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int r = (int)(e % NRING), tile = (int)((e / NRING) % n_tiles);
+  const long long nk = e / NRING / n_tiles;
+  const int ty = tile / tiles_w, tx = tile % tiles_w;
+  int py, px;
+  if (r < 2 * TW) {
+    py = r < TW ? 0 : TH - 1;
+    px = r % TW;
+  } else {
+    py = 1 + ((r - 2 * TW) >> 1);
+    px = (r & 1) * (TW - 1);
+  }
+  const int h = ty * TH + py, w = tx * TW + px;
+  if (h >= H || w >= W) return;
+  const int tiles_h = n_tiles / tiles_w;
+  float sum = 0.f;
+  for (int uy = ty - 1; uy <= ty + 1; ++uy)
+    for (int ux = tx - 1; ux <= tx + 1; ++ux) {
+      const int oy = h - uy * TH + 1, ox = w - ux * TW + 1;
+      if (uy < 0 || uy >= tiles_h || ux < 0 || ux >= tiles_w || oy < 0 || oy > TH + 1 ||
+          ox < 0 || ox > TW + 1)
+        continue;
+      sum += rim[(nk * n_tiles + uy * tiles_w + ux) * NR + rim_slot(oy, ox)];
+    }
+  heat[(nk * H + h) * W + w] = sum;
 }
 
 }  // namespace
@@ -149,23 +254,35 @@ first_block_deep_kernel(const float* __restrict__ R,      // [b, K, H/kh, W/kw, 
 extern "C" {
 
 // R [b,K,H/kh,W/kw,C], M [b,H,W,C] (chain_gamma_prep of relu(a1), masked by
-// the pool route of relu(apre)), a1 [b,H,W,C0], wt [9,C,C0] (the transposed
-// w + g*w+), z0 [H,W,C0], taps [9,C0], heat [b,K,H,W]. Needs C0 in
-// {8, 16, ..., 64} (a multiple of 8), H % kh == 0, W % kw == 0. Returns
-// cudaGetLastError().
+// the pool route of relu(apre)), a1 [b,H,W,C0], wt [ceil(C/8),9,8,C0] (the
+// transposed w + g*w+, xai/lrp/chain.py GammaConv.w_apply_tc), z0
+// [H,W,C0], taps [9,C0], heat [b,K,H,W], rim a scratch of
+// b*K*ceil(H/16)*ceil(W/16)*128 floats. Two launches: the tiles, then the
+// rim pass. Needs C0 in {8, 16, ..., 64}, C a
+// count chain_block.cu takes (a multiple of 4 up to 128), H % kh == 0,
+// W % kw == 0, 16-byte aligned R, M and wt (8-byte a1 and z0); returns cudaErrorInvalidValue,
+// before any launch, otherwise. Else cudaGetLastError().
 int first_block_deep(const float* R, const float* M, const float* a1,
                      const float* wt, const float* z0, const float* taps,
-                     float* heat, int b, int K, int H, int W, int C0, int C,
+                     float* heat, float* rim, int b, int K, int H, int W, int C0, int C,
                      int kh, int kw, float stab0, void* stream) {
-  if (C0 % OG != 0 || C0 > 64 || C0 <= 0) return cudaErrorInvalidValue;
-  const int ng = C0 / OG;
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), K, b);
-  const size_t stage = CC * NS + 9 * CC * C0, red = ng * 9 * NR;
-  const size_t bytes = sizeof(float) * (9 * C0 + (stage > red ? stage : red));
+  if (C0 % 8 != 0 || C0 > 64 || C0 <= 0 || C % 4 != 0 || C <= 0 || C > 128 || kh != 2 ||
+      (kw != 2 && kw != 4) ||
+      !tc::aligned16(R) || !tc::aligned16(M) || !tc::aligned16(wt) ||
+      ((uintptr_t)a1 & 7) != 0 || ((uintptr_t)z0 & 7) != 0)
+    return cudaErrorInvalidValue;
+  const int tiles_w = (W + TW - 1) / TW, n_tiles = ((H + TH - 1) / TH) * tiles_w;
+  const dim3 grid(n_tiles * K, b);
+  const size_t bytes = sizeof(float) * (TP + A + 2 * STAGE);
   cudaError_t err = lrp::set_smem(first_block_deep_kernel, bytes);
   if (err != cudaSuccess) return err;
-  first_block_deep_kernel<<<grid, TPG * ng, bytes, (cudaStream_t)stream>>>(
-      R, M, a1, wt, z0, taps, heat, K, H, W, C0, C, kh, kw, stab0);
+  first_block_deep_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      R, M, a1, wt, z0, taps, heat, rim, K, H, W, C0, C, kw, stab0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)b * K * n_tiles * NRING;
+  first_block_deep_rim<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      rim, heat, H, W, tiles_w, n_tiles, total);
   return cudaGetLastError();
 }
 

@@ -29,7 +29,9 @@
 //
 // Bound on an H100: operations. The forward pair is 2*b*H*W*9*Ci*2*Co flops
 // and the transposed conv 2*K*b*H*W*9*2*Co*Ci, against ~4*(b*Ci + 2*K*b*Co
-// + K*b*Ci + 2*b*Co)*H*W bytes; LRP stays full f32 on the FMA units.
+// + K*b*Ci + 2*b*Co)*H*W bytes. The least time counts every product at
+// 3xTF32 on the tensor cores (495 / 3 TFLOP/s); this kernel stays full f32
+// on the FMA units (67 TFLOP/s).
 //
 // Channel counts: 0 < Ci, Co <= 128, Ci % 4 == 0, and Co a multiple of 8 or
 // of 20 (the 6s model's 100 channels). The apply taps are padded to a

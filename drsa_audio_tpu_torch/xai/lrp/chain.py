@@ -100,12 +100,29 @@ def _conv_t_nhwc(g, w):
 
 # ----------------------------------------------------------- weight prep
 
+SLICE = 8     # the tensor-core kernels' reduction slice (csrc/conv3x3_tc.cuh CC)
+
+
+def slice_taps(taps: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Taps [9, Kr, N] (tap, reduction channel, output channel) as
+    [ceil(Kr/8), 9, 8, n_pad], zero-padded: one staged 8-channel slice of the
+    reduction is one contiguous block."""
+    _, kr, n = taps.shape
+    kp = -(-kr // SLICE) * SLICE
+    out = taps.new_zeros((9, kp, n_pad))
+    out[:, :kr, :n] = taps
+    return out.reshape(9, kp // SLICE, SLICE, n_pad).transpose(0, 1).contiguous()
+
+
 @dataclasses.dataclass
 class GammaConv:
     """One inner gamma conv, prepared (port of _prep_inner_weights, in plain
     NHWC). wz1 = w + g*w+, wz3 = w + g*w- (OIHW); biases = (b + g*b+, b,
-    b + g*b-). ``w_prep`` [9, Ci, 2*Co] and ``w_apply`` [9, Co, Ci] are the
-    kernel's tap layouts of the forward pair and of the transposed wz1."""
+    b + g*b-). The kernels' tap layouts: ``w_prep`` [ceil(Ci/8), 9, 8, 2*Co]
+    the forward pair interleaved (column 2j wz1's output channel j, 2j + 1
+    wz3's), ``w_apply`` [9, Co, Ci] the transposed wz1 (merged_tail), and
+    ``w_apply_tc`` the same as [ceil(Co/8), 9, 8, Ci rounded up to 8]
+    (chain_block, first_block_deep)."""
     wz1: torch.Tensor
     wz3: torch.Tensor
     biases: torch.Tensor
@@ -113,6 +130,7 @@ class GammaConv:
     stab: float
     w_prep: torch.Tensor
     w_apply: torch.Tensor
+    w_apply_tc: torch.Tensor
 
     @property
     def ci(self) -> int:
@@ -132,12 +150,14 @@ def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
     biases = torch.stack([b + g * torch.clamp(b, min=0.0), b,
                           b + g * torch.clamp(b, max=0.0)])
     co, ci = w.shape[:2]
+    pair = torch.stack([wz1, wz3], dim=1).reshape(2 * co, ci, 3, 3)
+    w_apply = wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous()
     return GammaConv(
         wz1=wz1, wz3=wz3, biases=biases.contiguous(),
         inv=float(np.float32(1.0 / (2.0 + g))),
         stab=float(kwargs.get("stabilizer", 1e-6)),
-        w_prep=torch.cat([wz1, wz3]).permute(2, 3, 1, 0).reshape(9, ci, 2 * co).contiguous(),
-        w_apply=wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous())
+        w_prep=slice_taps(pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co), 2 * co),
+        w_apply=w_apply, w_apply_tc=slice_taps(w_apply, -(-ci // 8) * 8))
 
 
 @dataclasses.dataclass
@@ -209,7 +229,7 @@ def _lib(name: str):
             lib.first_layer.argtypes = [P, P, P, P, P, I, I, I, I, I, Fl, P]
             lib.first_layer.restype = I
         elif name == "first_block_deep":
-            lib.first_block_deep.argtypes = [P] * 7 + [I] * 8 + [Fl, P]
+            lib.first_block_deep.argtypes = [P] * 8 + [I] * 8 + [Fl, P]
             lib.first_block_deep.restype = I
         else:
             lib.merged_tail.argtypes = [P] * 11 + [I] * 8 + [Fl, P]
@@ -243,16 +263,20 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
 
     Replaces drsa_audio_tpu/xai/lrp/pallas_chain.py:624 _chain_block_kernel.
     Bound on an H100: operations (two forward convs per instance and one
-    transposed conv per clone, f32 on the FMA units). Design: the
+    transposed conv per clone): 1.23 ms per 3s request (b=256) on the
+    tensor cores in 3xTF32, the least time for f32-accurate products (3.03
+    ms on the FMA units). Design: the
     clone-shared masks are computed once per instance into a scratch G, the
     convT(R * m3) term of the gamma rule is skipped because the relu gate
-    zeroes it, and each thread keeps 8, 16 or 20 output channels of one
-    pixel in registers over a shared-memory tile with halo."""
+    zeroes it, and both launches are 3xTF32 implicit GEMMs on the tensor
+    cores (csrc/conv3x3_tc.cuh): the forward pair as one GEMM over 2*Co
+    interleaved columns, the transposed conv over R * G formed and split
+    once per staged 8-channel slice (asynchronous, double-buffered)."""
     if R.device.type == "cpu":
         return chain_block_plain(R, xs, convs, apre, pool)
     b, K = R.shape[:2]
     check_cuda("chain_block", R, *xs, *(apre,) if apre is not None else (),
-               *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
+               *(t for cv in convs for t in (cv.w_prep, cv.w_apply_tc, cv.biases)))
     if (pool is not None and pool[0] != 2) or b > 65535:
         raise ValueError("chain_block: pools must be (2, kw); batch at most 65535")
     lib = _lib("chain_block")
@@ -268,7 +292,7 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
             raise ValueError("chain_block: pool input shape disagrees")
         out = torch.empty((b, K, H * kh, W * kw, cv.ci), device=R.device)
         raise_on(lib.chain_gamma_apply(
-            R.data_ptr(), G.data_ptr(), x.data_ptr(), cv.w_apply.data_ptr(),
+            R.data_ptr(), G.data_ptr(), x.data_ptr(), cv.w_apply_tc.data_ptr(),
             apre.data_ptr() if last_pool else None, out.data_ptr(),
             b, K, H, W, cv.ci, cv.co, kh, kw, stream), "chain_gamma_apply")
         R = out
@@ -354,16 +378,21 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     (csrc/chain_block.cu) writes the clone-shared M = G * route once per
     instance (G = [z_true > 0] / stab(z1 + b2) from relu(a1), route the
     pool's first-argmax mask of relu(apre)); then csrc/first_block_deep.cu
-    runs one block per (16x16 tile, clone, instance), stages R * M over the
-    tile plus a 2-pixel halo in shared memory, takes the transposed conv
-    over the tile plus a 1-pixel halo in registers (6 pixels x 8 channels a
-    thread), applies relu(a1) and the tail multiplier, and reduces the 3x3
-    tail taps over the channels. The fine relevance never reaches device
-    memory."""
+    runs one block per (16x16 tile, clone, instance), stages R (at its
+    coarse level) and M over the tile plus a 1-pixel halo, takes the
+    transposed conv of R * M over the tile on the tensor cores in 3xTF32
+    (csrc/conv3x3_tc.cuh), applies relu(a1) and the tail multiplier to the
+    accumulator fragments and reduces the 3x3 tail taps over the channels;
+    it writes the heatmap pixels whose neighbourhood lies in the tile, and a
+    second launch adds the tiles' shares of the others in a fixed order, so
+    the heatmaps are the same from run to run. The fine relevance never
+    reaches device memory.
+    Bound: 5.63 ms per 6s request (b=64) on the tensor cores in 3xTF32, the
+    least time for f32-accurate products (13.99 ms on the FMA units)."""
     if R.device.type == "cpu":
         return first_block_deep_plain(R, a1, apre, gconv, fl, pool)
     check_cuda("first_block_deep", R, a1, apre, fl.z0, fl.taps,
-               gconv.w_prep, gconv.w_apply, gconv.biases)
+               gconv.w_prep, gconv.w_apply_tc, gconv.biases)
     b, K, Hc, Wc, C = R.shape
     H, W, C0 = a1.shape[1:]
     kh, kw = pool
@@ -375,9 +404,10 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
     M = _gamma_prep(a1, gconv, stream, apre=apre, pool=pool)
     heat = torch.empty((b, K, H, W), device=R.device)
+    rim = torch.empty((b * K * -(-H // 16) * -(-W // 16) * 128,), device=R.device)
     raise_on(_lib("first_block_deep").first_block_deep(
-        R.data_ptr(), M.data_ptr(), a1.data_ptr(), gconv.w_apply.data_ptr(),
-        fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
+        R.data_ptr(), M.data_ptr(), a1.data_ptr(), gconv.w_apply_tc.data_ptr(),
+        fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(), rim.data_ptr(),
         b, K, H, W, C0, C, kh, kw, fl.stab0, stream), "first_block_deep")
     LAUNCHES["first_block_deep"] += 1
     return heat

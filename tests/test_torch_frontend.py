@@ -13,6 +13,15 @@ from drsa_audio_tpu_torch.ops import frontend as tfe
 from drsa_audio_tpu_torch.ops import mel as tmel
 from drsa_audio_tpu_torch.ops import stft as tstft
 
+# The log-mel parity tolerance, in log10 units: the JAX package's Pallas
+# log-mel test's (tests/test_pallas_frontend.py). The two frameworks sum the
+# DFT in different orders, which the log amplifies at the quietest mel bins,
+# and the order depends on the host's BLAS threads. Over numpy seeds 0-29 the
+# worst error was 0.17 of this tolerance for the matmul DFT (gtzan), 0.15 for
+# the FFT path (gtzan_6s) and 0.27 for load_clip_to_mels (gtzan, 10 chunks);
+# at rtol 1e-5, atol 1e-5 the same errors reached 1.71x, 1.49x and 2.67x.
+LOGMEL_TOL = {"rtol": 1e-4, "atol": 1e-4}
+
 
 @pytest.mark.parametrize("case", ["gtzan", "toy", "gtzan_6s"])
 def test_logmel_matches_jax(case, rng):
@@ -24,7 +33,7 @@ def test_logmel_matches_jax(case, rng):
     want = np.asarray(jfe.logmel(jfe.peak_normalize(jnp.asarray(wav)), jcfg))
     got = tfe.logmel(tfe.peak_normalize(torch.as_tensor(wav)), tcfg).numpy()
     assert got.shape == (2, jcfg.n_mels, jcfg.width)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, **LOGMEL_TOL)
 
 
 @pytest.mark.parametrize("n_fft,n_mels", [(800, 128), (480, 64)])
@@ -82,7 +91,7 @@ def test_fft_logmel_matches_jax(case, rng):
     want = np.asarray(jfe.logmel(jnp.asarray(wav), jcfg, use_matmul_dft=False))
     got = tfe.logmel(torch.as_tensor(wav), tcfg, use_matmul_dft=False).numpy()
     assert got.shape == (2, jcfg.n_mels, jcfg.width)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, **LOGMEL_TOL)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -144,4 +153,4 @@ def test_load_clip_to_mels_matches_jax(case, chunks, rng):
     want = np.asarray(jfe.load_clip_to_mels(jnp.asarray(wav), jcfg, 1.5, chunks))
     got = tfe.load_clip_to_mels(torch.as_tensor(wav), tcfg, 1.5, chunks).numpy()
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, **LOGMEL_TOL)

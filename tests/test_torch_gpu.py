@@ -40,25 +40,37 @@ def _conv(rng, ci, co, dev):
                                     {"gamma": 0.4, "stabilizer": 1e-7})
 
 
-@pytest.mark.parametrize("chans,H,pool", [
-    ([(64, 64)], 16, (2, 2)),          # 3s block 3
-    ([(32, 64)], 32, (2, 2)),          # 3s block 2
-    ([(32, 32)], 64, None),            # 3s block 1
-    ([(8, 16)], 8, (2, 2)),            # toy widths
-    ([(16, 16), (16, 32)], 8, (2, 4)),  # two convs, a (2,4) pool
-    ([(128, 128)], 6, None),           # widest, ragged tile
-    ([(64, 100)], 16, (2, 2)),         # 6s block 2, bottom conv
-    ([(64, 100), (100, 100)], 8, (2, 2)),    # 6s block 2, both convs
-    ([(100, 128), (128, 128)], 8, (2, 2)),   # 6s block 3
-    ([(100, 128)], 6, None),           # 6s block 3, bottom conv, ragged tile
-    ([(128, 128)], 8, (2, 2)),         # 6s block 4
-    ([(100, 100)], 32, None),          # the 6s layer-19 head level
+@pytest.mark.parametrize("chans,H,W,pool,b,K", [
+    ([(64, 64)], 16, 16, (2, 2), 3, 4),           # 3s block 3
+    ([(32, 64)], 32, 32, (2, 2), 3, 4),           # 3s block 2
+    ([(32, 32)], 64, 64, None, 3, 4),             # 3s block 1
+    ([(8, 16)], 8, 8, (2, 2), 3, 4),              # toy widths
+    ([(16, 16), (16, 32)], 8, 8, (2, 4), 3, 4),   # two convs, a (2,4) pool
+    ([(128, 128)], 6, 6, None, 3, 4),             # widest, ragged tile
+    ([(64, 100)], 16, 16, (2, 2), 3, 4),          # 6s block 2, bottom conv
+    ([(64, 100), (100, 100)], 8, 8, (2, 2), 3, 4),     # 6s block 2, both convs
+    ([(100, 128), (128, 128)], 8, 8, (2, 2), 3, 4),    # 6s block 3
+    ([(100, 128)], 6, 6, None, 3, 4),             # 6s block 3, bottom conv, ragged tile
+    ([(128, 128)], 8, 8, (2, 2), 3, 4),           # 6s block 4
+    ([(100, 100)], 32, 32, None, 3, 4),           # the 6s layer-19 head level
+    # every channel level through both tensor-core launches, Ci != Co, ragged
+    # sizes, one and several clones and instances
+    ([(8, 8)], 9, 13, (2, 2), 1, 1),              # toy level, ragged 8x8 tiles
+    ([(8, 16)], 12, 20, (2, 4), 3, 4),            # toy widths, a (2,4) pool
+    ([(16, 16)], 17, 11, None, 3, 1),
+    ([(32, 32)], 40, 24, None, 1, 4),             # 3s block 1 level, ragged 32x8 tiles
+    ([(32, 64)], 20, 12, (2, 2), 3, 1),           # 3s block 2 level
+    ([(64, 64)], 33, 17, (2, 4), 1, 1),           # ragged 32x8 apply tiles
+    ([(64, 100)], 18, 10, (2, 2), 1, 4),          # the apply's N = 64
+    ([(100, 100)], 9, 9, None, 3, 1),             # the 100-channel level both ways
+    ([(100, 128)], 10, 14, (2, 4), 3, 4),         # the apply's N = 104
+    ([(128, 64)], 8, 8, (2, 2), 1, 4),
+    ([(128, 128)], 12, 8, (2, 2), 1, 4),          # the prep's two column blocks
 ])
-def test_chain_block_kernel_matches_plain(cuda, chans, H, pool):
+def test_chain_block_kernel_matches_plain(cuda, chans, H, W, pool, b, K):
+    """Pools hold an all-tied (zero after relu) window."""
     rng = np.random.default_rng(0)
-    b, K = 3, 4
     convs = [_conv(rng, ci, co, cuda) for ci, co in chans][::-1]     # top-down
-    W = H
     xs = [torch.as_tensor(np.maximum(rng.standard_normal((b, H, W, cv.ci)), 0)
                           .astype(np.float32), device=cuda) for cv in convs]
     R = torch.as_tensor(rng.standard_normal((b, K, H, W, convs[0].co)).astype(np.float32),
@@ -125,18 +137,84 @@ def _deep_inputs(rng, dev, b, K, H, W, C0, C, kw, rule):
     return R, a1, apre, gconv, fl, (2, kw)
 
 
-@pytest.mark.parametrize("H,W,C0,C,kw,rule", [
-    (16, 32, 8, 16, 4, "wsquare"),     # small
-    (18, 20, 16, 8, 2, "flat"),        # ragged tiles, (2,2) pool
-    (32, 64, 32, 64, 4, "wsquare"),
-    (128, 256, 64, 64, 4, "wsquare"),  # the 6s widths
+@pytest.mark.parametrize("H,W,C0,C,kw,rule,b,K", [
+    (16, 32, 8, 16, 4, "wsquare", 2, 4),     # small
+    (18, 20, 16, 8, 2, "flat", 2, 4),        # ragged tiles, (2,2) pool
+    (32, 64, 32, 64, 4, "wsquare", 2, 4),
+    (128, 256, 64, 64, 4, "wsquare", 2, 4),  # the 6s widths
+    (16, 40, 64, 64, 4, "wsquare", 1, 1),    # W not a multiple of the tile
+    (34, 36, 32, 100, 2, "flat", 3, 1),      # the 100-channel level as C
+    (20, 24, 8, 8, 2, "wsquare", 1, 4),      # the narrowest C0 and C
+    (50, 68, 16, 128, 4, "flat", 3, 4),      # ragged in both directions, C = 128
 ])
-def test_first_block_deep_kernel_matches_plain(cuda, H, W, C0, C, kw, rule):
-    args = _deep_inputs(np.random.default_rng(2), cuda, 2, 4, H, W, C0, C, kw, rule)
+def test_first_block_deep_kernel_matches_plain(cuda, H, W, C0, C, kw, rule, b, K):
+    args = _deep_inputs(np.random.default_rng(2), cuda, b, K, H, W, C0, C, kw, rule)
     n0 = chain.LAUNCHES["first_block_deep"]
     got = chain.first_block_deep(*args)
     assert chain.LAUNCHES["first_block_deep"] == n0 + 1
     _close(got, chain.first_block_deep_plain(*args))
+
+
+@pytest.mark.parametrize("H,W,C0,C,kw,rule", [
+    (128, 256, 64, 64, 4, "wsquare"),        # the 6s widths
+    (50, 68, 16, 128, 4, "flat"),            # ragged in both directions
+    (18, 20, 16, 8, 2, "wsquare"),           # ragged, (2,2) pool
+])
+def test_first_block_deep_kernel_is_deterministic(cuda, H, W, C0, C, kw, rule):
+    """Runs on the same inputs give the same bits: each heatmap pixel on a
+    tile's ring sums the tiles' shares in a fixed order."""
+    args = _deep_inputs(np.random.default_rng(4), cuda, 2, 4, H, W, C0, C, kw, rule)
+    first = chain.first_block_deep(*args)
+    for _ in range(3):
+        assert torch.equal(first, chain.first_block_deep(*args))
+
+
+@pytest.mark.parametrize("margin", [1e-5, 1e-6])
+@pytest.mark.parametrize("ci,co", [(8, 16), (32, 32), (64, 64), (64, 100), (100, 128),
+                                   (128, 128)])
+def test_gamma_prep_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
+    """The prep's sign decisions where z_true lies ``margin`` times the scale
+    of its own sum (S = the sum of the |terms|) from zero: one pixel per
+    output channel, planted by the channel's bias, above zero for even
+    channels and below for odd. z_true's sign in float64 decides: the
+    kernel's G must be non-zero exactly where it is positive, and there
+    equal 1 / stab(z1 + b2) at rtol 1e-4, atol 1e-5 * max."""
+    import ctypes
+    rng = np.random.default_rng(ci * 1000 + co)
+    b, H, W = 2, 16, 16
+    x = torch.as_tensor(np.maximum(rng.standard_normal((b, H, W, ci)), 0).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor((rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
+                        .astype(np.float32), device=cuda)
+    spec = vgg.LayerSpec("conv", "c", {})
+
+    def prep(bias):
+        return chain.prep_inner_weights({"c": {"weight": w, "bias": bias}}, spec,
+                                        {"gamma": 0.3, "stabilizer": 1e-7})
+
+    cv = prep(torch.zeros(co, device=cuda))
+    x64 = x.double()
+    conv64 = lambda wt: vgg.conv2d_same_nhwc(x64, wt.double(), None)    # noqa: E731
+    c = (conv64(cv.wz1) + conv64(cv.wz3)) * cv.inv                      # z_true less b0
+    S = vgg.conv2d_same_nhwc(x64, cv.wz1.double().abs() + cv.wz3.double().abs(), None) * cv.inv
+    o = torch.arange(co, device=cuda)
+    at = (torch.as_tensor(rng.integers(0, b, co), device=cuda),
+          torch.as_tensor(rng.integers(0, H, co), device=cuda),
+          torch.as_tensor(rng.integers(0, W, co), device=cuda), o)
+    sign = 1.0 - 2.0 * (o % 2).double()
+    cv = prep((-c[at] + sign * margin * S[at]).float())
+    b1, b0, b2 = (v.double() for v in cv.biases)
+    z_true = c[at] + b0
+    assert ((z_true * sign) > 0.5 * margin * S[at]).all()     # planted, after the f32 bias
+    G = chain._gamma_prep(x, cv, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    got = G[at].double()
+    flipped = int(((got != 0) != (z_true > 0)).sum())
+    assert flipped == 0, f"{flipped} of {co} planted sign decisions differ from float64"
+    pos = z_true > 0
+    want = 1.0 / chain.stabilize(conv64(cv.wz1)[at] + b1 + b2, cv.stab)
+    torch.testing.assert_close(got[pos], want[pos], rtol=1e-4,
+                               atol=1e-5 * want[pos].abs().max().item())
 
 
 def test_service_on_card_matches_plain_path(cuda):

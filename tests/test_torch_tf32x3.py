@@ -1,0 +1,186 @@
+"""The arithmetic of the tensor-core chain kernels (csrc/conv3x3_tc.cuh) on
+the CPU: every product of the gamma conv's forward pair and transposed conv
+in 3xTF32 (each operand split into hi = tf32(x) and lo = tf32(x - hi), the
+product summed as lo*hi + hi*lo + hi*hi), held against pure f32 on the
+inputs that the port's chain records, for the bridged 3s model and a small
+model of the 6s topology ((2,4) pool above a two-conv first block, a
+100-channel level). Also the re-laid taps the kernels stage, by index.
+
+The split is what the emulation models; the card's tensor cores also add
+with truncation, which the prep's sign decisions avoid by summing each
+k-step's products into their f32 accumulator with round-to-nearest (see the
+source). Tolerance: rtol 1e-4, atol 1e-5 * max|ref| (assert_close_lrp).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from drsa_audio_tpu_torch.models import vgg as tvgg
+from drsa_audio_tpu_torch.models.projection import insert_projection
+from drsa_audio_tpu_torch.xai import explain as texp
+from drsa_audio_tpu_torch.xai.lrp import chain
+from test_torch_util import assert_close_lrp, both_models, signed_permutation, t
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round the f32 significand to 10 bits, ties away from
+    zero (add 0x1000 to the bit pattern, clear the low 13 bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def x3(conv):
+    """``conv(a, w)`` in 3xTF32."""
+    def run(a, w, *rest):
+        ah, al = split(a)
+        wh, wl = split(w)
+        out = (conv(al, wh, *rest) + conv(ah, wl, *rest)) + conv(ah, wh, *rest)
+        return out
+    return run
+
+
+def _conv_same(x, w, b=None):
+    out = chain.conv2d_same_nhwc(x, w, None)
+    return out if b is None else out + b
+
+
+def prep_decisions(x, cv, conv):
+    """The prep's sign decisions: z_true > 0 and G != 0 (G = [z_true > 0] /
+    stab(z1 + b2), as chain_block_plain forms it)."""
+    b1, b0, b2 = (v.view(1, 1, 1, -1) for v in cv.biases)
+    z1 = conv(x, cv.wz1) + b1
+    z3 = conv(x, cv.wz3)
+    z_true = (z1 + z3 - b1) * cv.inv + b0
+    G = (z_true > 0).to(x.dtype) / chain.stabilize(z1 + b2, cv.stab)
+    return z_true > 0, G != 0
+
+
+def _record(monkeypatch, run):
+    """The chain_block and first_block_deep calls of ``run()`` (plain, on
+    the CPU)."""
+    calls = []
+    for name in ("chain_block", "first_block_deep"):
+        orig = getattr(chain, name)
+
+        def rec(*args, _orig=orig, _name=name):
+            calls.append((_name, args))
+            return _orig(*args)
+        monkeypatch.setattr(chain, name, rec)
+    run()
+    monkeypatch.undo()
+    return calls
+
+
+def _small_6s_like():
+    """Port-only model of the 6s topology: block depth 2, a (2,4) pool above
+    block 0, 16 then 100 then 100 channels, 32x64 input; the DRSA layer is
+    the relu of block 2 (two chain_block calls, one first_block_deep)."""
+    cfg = tvgg.VGGConfig(n_filters=(16, 100, 100), n_dense=8,
+                         pool_kernels=((2, 4), (2, 2), (2, 2)), dropout=0.0,
+                         input_size=(32, 64), n_classes=2, conv_bn=False, dense_bn=False,
+                         block_depth=2)
+    specs = tvgg.build_layer_specs(cfg)
+    nm = [("features.0", ("wsquare", {"stabilizer": 1e-7}))] + [
+        (s.name, ("gamma", {"gamma": 0.3, "stabilizer": 1e-7}))
+        for s in specs[1:] if s.kind == "conv" and s.name.startswith("features")]
+    return specs, tvgg.init_params(specs, 0, device="cpu"), nm, 13, 100, (32, 64)
+
+
+def _chain_calls(model, monkeypatch):
+    if model == "gtzan3s":
+        _, _, specs, params, nm, layer, d, hw, _ = both_models("gtzan3s")
+    else:
+        specs, params, nm, layer, d, hw = _small_6s_like()
+    sp = insert_projection(specs, layer, t(signed_permutation(5, d)), 4, input_size=hw)
+    x = t(np.random.default_rng(7).standard_normal((1, 1) + hw))
+    comp = texp.class_composite(nm, 4)
+    with torch.no_grad():
+        return _record(monkeypatch,
+                       lambda: texp.subspace_heatmaps(sp, params, x, comp, 4, class_idx=0))
+
+
+@pytest.mark.parametrize("model,expected", [
+    ("gtzan3s", ["chain_block"] * 3),
+    ("small6s", ["chain_block"] * 2 + ["first_block_deep"]),
+])
+def test_chain_in_3xtf32_matches_f32(model, expected, monkeypatch):
+    """Every recorded chain call with all gamma-conv products in 3xTF32
+    against pure f32, and no sign decision of the prep flipped."""
+    calls = _chain_calls(model, monkeypatch)
+    assert [n for n, _ in calls] == expected
+    flips = {"z_true": 0, "G": 0}
+    for name, args in calls:
+        want = getattr(chain, name + "_plain")(*args)
+        with monkeypatch.context() as m:
+            m.setattr(chain, "conv2d_same_nhwc", x3(chain.conv2d_same_nhwc))
+            m.setattr(chain, "_conv_t_nhwc", x3(chain._conv_t_nhwc))
+            got = getattr(chain, name + "_plain")(*args)
+        assert_close_lrp(got.numpy(), want.numpy())
+        if name == "chain_block":
+            pairs = zip(args[1], args[2])
+        else:
+            pairs = [(torch.clamp(args[1], min=0.0), args[3])]
+        for x, cv in pairs:
+            zw, gw = prep_decisions(x, cv, _conv_same)
+            zg, gg = prep_decisions(x, cv, x3(_conv_same))
+            flips["z_true"] += int((zw != zg).sum())
+            flips["G"] += int((gw != gg).sum())
+    assert flips == {"z_true": 0, "G": 0}
+
+
+def test_tf32_rounding():
+    """The emulated cvt.rna: 10 significand bits, round half away from zero,
+    and hi + lo within 2^-22 of x."""
+    x = torch.tensor([1.0, 1.0 + 2**-11, -(1.0 + 2**-11), 1.0 + 2**-12, 3.14159265, -2.5e-8])
+    hi = tf32(x)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert hi[1].item() == 1.0 + 2**-10 and hi[2].item() == -(1.0 + 2**-10)
+    assert hi[3].item() == 1.0
+    rng = np.random.default_rng(0)
+    y = t(rng.standard_normal(10000) * 10.0 ** rng.integers(-6, 6, 10000))
+    h, lo = split(y)
+    assert ((h + lo - y).abs() <= 2.0**-22 * y.abs()).all()
+    assert ((h - y).abs() <= 2.0**-11 * y.abs()).all()
+
+
+@pytest.mark.parametrize("ci,co", [(8, 16), (64, 100), (100, 128), (12, 20)])
+def test_tensor_core_tap_layouts(ci, co):
+    """GammaConv.w_prep [ceil(Ci/8), 9, 8, 2Co] interleaves the forward pair
+    (column 2o wz1's channel o, 2o + 1 wz3's) and w_apply_tc [ceil(Co/8), 9,
+    8, Ci rounded up to 8] holds the transposed wz1 (tap (dy, dx) reads
+    wz1[o, i, 2 - dy, 2 - dx]); zeros past the counts."""
+    rng = np.random.default_rng(ci + co)
+    spec = tvgg.LayerSpec("conv", "c", {})
+    cv = chain.prep_inner_weights(
+        {"c": {"weight": t(rng.standard_normal((co, ci, 3, 3))), "bias": t(rng.standard_normal(co))}},
+        spec, {"gamma": 0.3})
+    wz1, wz3 = cv.wz1.numpy(), cv.wz3.numpy()
+    wp, wa = cv.w_prep.numpy(), cv.w_apply_tc.numpy()
+    assert wp.shape == (-(-ci // 8), 9, 8, 2 * co)
+    assert wa.shape == (-(-co // 8), 9, 8, -(-ci // 8) * 8)
+    for s in range(wp.shape[0]):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            for c in range(8):
+                i = s * 8 + c
+                if i < ci:
+                    np.testing.assert_array_equal(wp[s, tap, c, 0::2], wz1[:, i, dy, dx])
+                    np.testing.assert_array_equal(wp[s, tap, c, 1::2], wz3[:, i, dy, dx])
+                else:
+                    assert not wp[s, tap, c].any()
+    for s in range(wa.shape[0]):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            for c in range(8):
+                o = s * 8 + c
+                if o < co:
+                    np.testing.assert_array_equal(wa[s, tap, c, :ci], wz1[o, :, 2 - dy, 2 - dx])
+                    assert not wa[s, tap, c, ci:].any()
+                else:
+                    assert not wa[s, tap, c].any()
