@@ -77,6 +77,13 @@ __device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
                "r"(valid ? 16 : 0));
 }
 
+// 4 bytes, through L1 (.ca: the only class that copies fewer than 16).
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -84,19 +91,35 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Channels [c0, c0 + CC) of an RH x RW pixel region whose upper-left pixel
-// is (y0, x0) of the image src [H, W, C], into dst [RH * RW][SP]; zero
-// outside the image and past C. C % 4 == 0; all threads of the block take
-// part.
+// Channels [c0, c0 + 4 * NCH) (NCH = 2: one slice of CC) of an RH x RW
+// pixel region whose upper-left pixel is (y0, x0) of the image src
+// [H, W, C], into dst [RH * RW][SP]; zero outside the image and past C.
+// C % 4 == 0; all threads of the block take part.
+template <int NCH = 2>
 __device__ __forceinline__ void stage_region(float* dst, const float* __restrict__ src,
                                              int RH, int RW, int y0, int x0, int H, int W,
                                              int C, int c0) {
-  for (int e = threadIdx.x; e < RH * RW * 2; e += blockDim.x) {
-    const int q = e >> 1, c = c0 + (e & 1) * 4;
+  for (int e = threadIdx.x; e < RH * RW * NCH; e += blockDim.x) {
+    const int q = (unsigned)e / NCH, r = (unsigned)e % NCH, c = c0 + r * 4;
     const int h = y0 + q / RW, w = x0 + q % RW;
     const bool ok = c < C && h >= 0 && h < H && w >= 0 && w < W;
     const float* s = ok ? src + ((size_t)h * W + w) * C + c : src;
-    cp16(dst + q * SP + (e & 1) * 4, s, ok);
+    cp16(dst + q * SP + r * 4, s, ok);
+  }
+}
+
+// The same from a channel-major image src [C, H, W] (NCHW), one float a
+// copy, neighbouring threads on neighbouring pixels of a row.
+template <int NCH = 2>
+__device__ __forceinline__ void stage_region_nchw(float* dst, const float* __restrict__ src,
+                                                  int RH, int RW, int y0, int x0, int H, int W,
+                                                  int C, int c0) {
+  const int n = RH * RW;
+  for (int e = threadIdx.x; e < n * 4 * NCH; e += blockDim.x) {
+    const int q = e % n, c = e / n;
+    const int h = y0 + q / RW, w = x0 + q % RW;
+    const bool ok = c0 + c < C && h >= 0 && h < H && w >= 0 && w < W;
+    cp4(dst + q * SP + c, ok ? src + ((size_t)(c0 + c) * H + h) * W + w : src, ok);
   }
 }
 

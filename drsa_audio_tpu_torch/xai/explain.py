@@ -61,8 +61,25 @@ def maxpool_route_mask(a: torch.Tensor, kernel: tuple) -> torch.Tensor:
     return chain.route_mask(a, kernel, nhwc=False)
 
 
+def _vjp_of_forward(spec, params, a_in, R, nhwc: bool):
+    """The vjp of the layer's forward (apply_layer, or apply_layer_nhwc on
+    the NHWC walk) at a_in, applied to R, as the JAX package takes it for
+    every layer without a rule. Autograd runs outside inference mode, on
+    copies of the inputs, so that a caller in inference mode may call it."""
+    apply = apply_layer_nhwc if nhwc else apply_layer
+    with torch.inference_mode(False):
+        _, vjp = torch.func.vjp(lambda t: apply(spec, params, t), a_in.clone())
+        (out,) = vjp(R.clone())
+    return out
+
+
 def _unmapped_backward(spec, params, a_in, R, nhwc: bool):
-    """Relevance through a layer without a rule: the vjp of its forward."""
+    """Relevance through a layer without a rule: the vjp of its forward.
+    relu and maxpool are written out, so that they keep JAX's tie semantics
+    (gate 0.5 at 0, where torch's relu backward gives 0; the first argmax of
+    a window); conv, linear, flatten and the identities are written out
+    because they are exact and cheap. Every other kind (projection,
+    invprojection, batchnorm, batchnorm1d) takes _vjp_of_forward."""
     if spec.kind in ("conv", "linear"):
         return LayerOp(spec, params, nhwc).vjp(R, a_in)
     if spec.kind == "relu":
@@ -74,7 +91,7 @@ def _unmapped_backward(spec, params, a_in, R, nhwc: bool):
         return R.reshape(a_in.shape)
     if spec.kind in ("dropout", "subspacefilter"):
         return R
-    raise ValueError(f"no backward for unmapped layer kind {spec.kind}")
+    return _vjp_of_forward(spec, params, a_in, R, nhwc)
 
 
 def _lrp_segment_backward(specs, params, acts, R, composite, nhwc: bool = False):

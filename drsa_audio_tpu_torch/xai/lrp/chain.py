@@ -324,9 +324,11 @@ def first_layer(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tens
     Replaces drsa_audio_tpu/xai/lrp/pallas_chain.py:709 _first_layer_kernel
     (and its mm_taps / recompute flag variants, the same function). Bound
     on an H100: bytes (R and a1 read once, K maps written). Design: one
-    block per (clone, 8-row band, instance), clones adjacent in the grid so
-    a1 is re-read from L2; the multiplier F is formed in shared memory and
-    never stored."""
+    block per (16-row coarse band, instance) holds all K clones; per coarse
+    row it forms the one-hot F compactly (the winner and gate / stab(z0)
+    there) once for every clone, and each thread scatters one coarse pixel
+    of one clone onto a 4x4 heatmap patch in registers; patches overlap-add
+    in a fixed order (the carry down the band, shared memory across)."""
     if R.device.type == "cpu":
         return first_layer_plain(R, a1, fl)
     check_cuda("first_layer", R, a1, fl.z0, fl.taps)

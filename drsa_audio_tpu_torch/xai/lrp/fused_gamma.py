@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from drsa_audio_tpu_torch.utils.nvcc import check_cuda, load, raise_on
+from drsa_audio_tpu_torch.xai.lrp.chain import slice_taps
 from drsa_audio_tpu_torch.xai.lrp.rules import _gmods, _mul_small, stabilize
 
 LAUNCHES = {"gamma_nonneg": 0}
@@ -56,12 +57,30 @@ def gamma_nonneg_folded_plain(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
     return _mul_small(F.conv_transpose2d(s, wpn, padding=1), x, K)
 
 
+def pair_weights(w: torch.Tensor, b: torch.Tensor | None, gamma: float):
+    """The kernel's weights for w [Co, Ci, 3, 3] and bias b: the forward pair
+    wz1 = w + g*w+, wz3 = w + g*w- interleaved by output channel (row 2o
+    wz1's channel o, 2o + 1 wz3's), as ``w_prep`` [ceil(Ci/8), 9, 8, 2*Co]
+    (chain.GammaConv's layout) and, flipped and transposed, as ``w_apply``
+    [Co/4, 9, 8, Ci rounded up to 8] (reduction channel 2o + s, the order of
+    the prep's (m1, m3) pairs); and the biases [3, Co] (b1, b0, b2)."""
+    co, ci = w.shape[:2]
+    gp, gn = _gmods(gamma)
+    b0 = torch.zeros(co, dtype=w.dtype, device=w.device) if b is None else b
+    pair = torch.stack([gp(w), gn(w)], dim=1).reshape(2 * co, ci, 3, 3)
+    w_prep = slice_taps(pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co), 2 * co)
+    w_apply = slice_taps(pair.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 2 * co, ci),
+                         -(-ci // 8) * 8)
+    return w_prep, w_apply, torch.stack([gp(b0), b0, gn(b0)]).contiguous()
+
+
 def _lib():
     lib = load("gamma_nonneg")
     if not getattr(lib, "_typed", False):
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gamma_nonneg.argtypes = [P] * 7 + [I] * 6 + [Fl, Fl, P]
-        lib.gamma_nonneg.restype = I
+        lib.gamma_nonneg_prep.argtypes = [P] * 4 + [I] * 5 + [Fl, Fl, P]
+        lib.gamma_nonneg_apply.argtypes = [P] * 5 + [I] * 6 + [P]
+        lib.gamma_nonneg_prep.restype = lib.gamma_nonneg_apply.restype = I
         lib._typed = True
     return lib
 
@@ -78,12 +97,14 @@ def gamma_nonneg_folded(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
     Replaces drsa_audio_tpu/xai/lrp/pallas_gamma.py:49 _gamma_nonneg_kernel
     (launched :135). Bound on an H100: operations (the forward pair once per
     instance, one transposed conv over Co channels per clone: m1 and m3 are
-    disjoint, so each relevance entry meets one weight set). Design: a
-    prep launch writes the clone-shared [m1 | m3] once per instance; the
-    apply launch stages R * [m1 | m3] per (16x16 tile, clone) and keeps 4
-    pixels x 8 channels a thread in registers. NCHW throughout, so no
-    transposes. Takes 0 < Ci, Co <= 128 with Ci % 4 == 0 and Co a multiple
-    of 8 or 20; raises ValueError for other counts."""
+    disjoint, so each relevance entry meets one weight set). Design: a prep
+    launch writes the clone-shared (m1, m3) once per instance, and the apply
+    launch takes the transposed conv over the 2*Co channels R * (m1, m3)
+    against the stacked taps of the pair; both are 3xTF32 implicit GEMMs on
+    the tensor cores (csrc/gamma_tc.cuh) that stage x and R from NCHW and
+    write the result NCHW, so nothing is transposed. Takes 0 < Ci, Co <=
+    128 with Ci % 4 == 0 and Co a multiple of 8 or 20; raises ValueError,
+    before any launch, for other counts."""
     if x.device.type == "cpu":
         return gamma_nonneg_folded_plain(x, R, w, b, num_concepts, gamma, stabilizer)
     x, R = x.contiguous(), R.contiguous()
@@ -94,20 +115,16 @@ def gamma_nonneg_folded(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
     if (tuple(w.shape) != (Co, Ci, 3, 3) or tuple(R.shape) != (K * n, Co, H, W)
             or (b is not None and tuple(b.shape) != (Co,))):
         raise ValueError("gamma_nonneg: relevance / activation / weight shapes disagree")
-    gp, gn = _gmods(gamma)
-    b0 = torch.zeros(Co, device=x.device) if b is None else b
-    wpn = torch.cat([gp(w), gn(w)])                                 # [2Co, Ci, 3, 3]
-    wf = wpn.permute(2, 3, 1, 0).reshape(9, Ci, 2 * Co).contiguous()
-    ci8 = -(-Ci // 8) * 8
-    wt = F.pad(wpn.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 2 * Co, Ci),
-               (0, ci8 - Ci)).contiguous()
-    bias3 = torch.stack([gp(b0), gn(b0), b0]).contiguous()
-    M = torch.empty((n, 2 * Co, H, W), device=x.device)
+    wf, wt, bias3 = pair_weights(w, b, gamma)
+    M = torch.empty((n, H, W, 2 * Co), device=x.device)
     out = torch.empty((K * n, Ci, H, W), device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    raise_on(_lib().gamma_nonneg(
-        x.data_ptr(), R.data_ptr(), wf.data_ptr(), wt.data_ptr(),
-        bias3.data_ptr(), M.data_ptr(), out.data_ptr(), n, K, H, W, Ci, Co,
+    lib = _lib()
+    raise_on(lib.gamma_nonneg_prep(
+        x.data_ptr(), wf.data_ptr(), bias3.data_ptr(), M.data_ptr(), n, H, W, Ci, Co,
         float(np.float32(1.0 / (2.0 + gamma))), float(stabilizer), stream), "gamma_nonneg")
+    raise_on(lib.gamma_nonneg_apply(
+        R.data_ptr(), M.data_ptr(), x.data_ptr(), wt.data_ptr(), out.data_ptr(), n, K, H, W,
+        Ci, Co, stream), "gamma_nonneg")
     LAUNCHES["gamma_nonneg"] += 1
     return out

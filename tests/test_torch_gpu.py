@@ -118,6 +118,45 @@ def test_first_layer_kernel_matches_plain(cuda, rule, H, C):
     _close(got, chain.first_layer_plain(R, a1, fl))
 
 
+def _first_inputs(rng, dev, rule, b, K, H, W, C):
+    spec = vgg.LayerSpec("conv", "features.0", {})
+    w = torch.as_tensor((rng.standard_normal((C, 1, 3, 3)) * 0.5).astype(np.float32), device=dev)
+    bias = torch.as_tensor((rng.standard_normal(C) * 0.1).astype(np.float32), device=dev)
+    fl = chain.prep_first_weights({"features.0": {"weight": w, "bias": bias}}, spec,
+                                  (rule, {"stabilizer": 1e-7}), (H, W))
+    a1 = rng.standard_normal((b, H, W, C)).astype(np.float32)
+    a1[0, :2, :4] = 0.0                   # relu ties and an all-tied window
+    a1[-1, -2:, -4:] = -1.0               # an all-negative window (gate 0)
+    R = rng.standard_normal((b, K, H // 2, W // 2, C)).astype(np.float32)
+    return torch.as_tensor(R, device=dev), torch.as_tensor(a1, device=dev), fl
+
+
+@pytest.mark.parametrize("rule,b,K,H,W,C", [
+    ("wsquare", 3, 4, 128, 128, 32),      # the 3s service's shape (b=256 there)
+    ("flat", 3, 4, 64, 64, 8),            # the toy service's shape
+    ("wsquare", 2, 1, 40, 72, 16),        # one clone; a band cut short (20 coarse rows)
+    ("flat", 1, 6, 8, 24, 8),             # more clones than 4; one short band
+    ("wsquare", 1, 4, 16, 512, 8),        # 1024 column-clone pairs: two clone groups
+])
+def test_first_layer_kernel_matches_plain_at_band_edges(cuda, rule, b, K, H, W, C):
+    """The banded kernel where bands, clone groups and the image's edges
+    fall: every heatmap pixel sums its four patches, across band and
+    column borders."""
+    R, a1, fl = _first_inputs(np.random.default_rng(5), cuda, rule, b, K, H, W, C)
+    n0 = chain.LAUNCHES["first_layer"]
+    got = chain.first_layer(R, a1, fl)
+    assert chain.LAUNCHES["first_layer"] == n0 + 1
+    _close(got, chain.first_layer_plain(R, a1, fl))
+
+
+@pytest.mark.parametrize("H,W,C", [(128, 128, 32), (40, 72, 16)])
+def test_first_layer_kernel_is_deterministic(cuda, H, W, C):
+    R, a1, fl = _first_inputs(np.random.default_rng(6), cuda, "wsquare", 2, 4, H, W, C)
+    first = chain.first_layer(R, a1, fl)
+    for _ in range(3):
+        assert torch.equal(first, chain.first_layer(R, a1, fl))
+
+
 def _deep_inputs(rng, dev, b, K, H, W, C0, C, kw, rule):
     spec, spec0 = vgg.LayerSpec("conv", "g", {}), vgg.LayerSpec("conv", "c0", {})
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -334,13 +373,29 @@ def _6s_model():
 
 # ------------------------------------------------------------ gamma_nonneg
 
-def _gamma_inputs(rng, b, K, ci, co, H, W, dev):
+def _gamma_inputs(rng, b, K, ci, co, H, W, dev, gamma=0.3):
+    """Random x >= 0, R, w and bias; R is zero where z_true lies within
+    1e-6 of the scale of its own sum (S, the sum of the |terms|) from zero.
+    There the kernel's sums (3xTF32) and the plain version's (cuDNN, f32)
+    may take the sign of z_true differently, both within f32 round-off of
+    it (the f32 and float64 signs differ there too), and in the LRP walk
+    such a neuron's relevance is about zero. The decisions themselves are
+    held to float64 by test_gamma_nonneg_sign_decisions_at_planted_near_ties."""
     x = np.maximum(rng.standard_normal((b, ci, H, W)), 0).astype(np.float32)
     x[0, 0, :2] = 0.0
     R = rng.standard_normal((K * b, co, H, W)).astype(np.float32)
     w = (rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci))).astype(np.float32)
     bias = (rng.standard_normal(co) * 0.05).astype(np.float32)
-    return [torch.as_tensor(a, device=dev) for a in (x, R, w, bias)]
+    x, R, w, bias = (torch.as_tensor(a, device=dev) for a in (x, R, w, bias))
+    if 0 < co <= 128 and ci <= 128:
+        wz1, wz3 = w + gamma * w.clamp(min=0), w + gamma * w.clamp(max=0)
+        conv = lambda wt: torch.nn.functional.conv2d(x.double(), wt.double(), padding=1)  # noqa
+        b64 = bias.double()[:, None, None]
+        z_true = (conv(wz1) + conv(wz3)) / (2 + gamma) + b64
+        S = conv(wz1.abs() + wz3.abs()) / (2 + gamma) + b64.abs()
+        near = (z_true.abs() < 1e-6 * S).repeat(K, 1, 1, 1)
+        R = torch.where(near, 0.0, R)
+    return [x, R, w, bias]
 
 
 @pytest.mark.parametrize("ci,co,H,W", [
@@ -360,6 +415,76 @@ def test_gamma_nonneg_kernel_matches_plain(cuda, ci, co, H, W, K):
     got = fused_gamma.gamma_nonneg_folded(x, R, w, bias, K, gamma=0.3, stabilizer=1e-7)
     assert fused_gamma.LAUNCHES["gamma_nonneg"] == n0 + 1
     _close(got, fused_gamma.gamma_nonneg_folded_plain(x, R, w, bias, K, 0.3, 1e-7))
+
+
+@pytest.mark.parametrize("ci,co,H,W", [(32, 64, 32, 32), (100, 100, 11, 6), (12, 20, 9, 7)])
+def test_gamma_nonneg_kernel_is_deterministic(cuda, ci, co, H, W):
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    x, R, w, bias = _gamma_inputs(np.random.default_rng(ci + co), 3, 4, ci, co, H, W, cuda)
+    first = fused_gamma.gamma_nonneg_folded(x, R, w, bias, 4, gamma=0.3, stabilizer=1e-7)
+    for _ in range(3):
+        assert torch.equal(first, fused_gamma.gamma_nonneg_folded(x, R, w, bias, 4, gamma=0.3,
+                                                                  stabilizer=1e-7))
+
+
+@pytest.mark.parametrize("margin", [1e-5, 1e-6])
+@pytest.mark.parametrize("ci,co", [(8, 16), (32, 32), (64, 64), (64, 100), (100, 128),
+                                   (128, 128)])
+def test_gamma_nonneg_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
+    """The gamma_nonneg prep's sign decisions where z_true lies ``margin``
+    times the scale of its own sum (S = the sum of the |terms|) from zero,
+    as test_gamma_prep_sign_decisions_at_planted_near_ties plants them: one
+    pixel per output channel, above zero for even channels and below for
+    odd. z_true's sign in float64 decides: m1 must be non-zero exactly where
+    it is positive and m3 exactly where it is negative, and there be the
+    inverse of stab(z1 + b2) and of stab(z3) in float64, at rtol 1e-4 and
+    atol 1e-6 times the sum of the |terms| of that denominator."""
+    import ctypes
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    rng = np.random.default_rng(ci * 1000 + co + 7)
+    b, H, W, gamma, stab = 2, 16, 16, 0.3, 1e-7
+    x = torch.as_tensor(np.maximum(rng.standard_normal((b, ci, H, W)), 0).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor((rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
+                        .astype(np.float32), device=cuda)
+    wf, _, bias3 = fused_gamma.pair_weights(w, torch.zeros(co, device=cuda), gamma)
+    inv = float(np.float32(1.0 / (2.0 + gamma)))
+    x64 = x.double()
+    conv64 = lambda wt: torch.nn.functional.conv2d(x64, wt.double(), padding=1)  # noqa: E731
+    gp, gn = (lambda p: p + gamma * p.clamp(min=0)), (lambda p: p + gamma * p.clamp(max=0))
+    z3_0 = conv64(gn(w))
+    c = (conv64(gp(w)) + z3_0) * inv                                     # z_true less b0
+    S = conv64(gp(w).abs() + gn(w).abs()) * inv
+    o = torch.arange(co, device=cuda)
+    at = (torch.as_tensor(rng.integers(0, b, co), device=cuda), o,
+          torch.as_tensor(rng.integers(0, H, co), device=cuda),
+          torch.as_tensor(rng.integers(0, W, co), device=cuda))
+    sign = 1.0 - 2.0 * (o % 2).double()
+    bias = (-c[at] + sign * margin * S[at]).float()
+    _, _, bias3 = fused_gamma.pair_weights(w, bias, gamma)
+    b1, b0, b2 = (v.double() for v in bias3)
+    z_true = c[at] + b0
+    assert ((z_true * sign) > 0.5 * margin * S[at]).all()     # planted, after the f32 bias
+    M = torch.empty((b, H, W, 2 * co), device=cuda)
+    err = fused_gamma._lib().gamma_nonneg_prep(
+        x.data_ptr(), wf.data_ptr(), bias3.data_ptr(),
+        M.data_ptr(), b, H, W, ci, co, inv, stab,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    torch.cuda.synchronize()
+    m1, m3 = (M[at[0], at[2], at[3], 2 * o + s].double() for s in (0, 1))
+    pos, neg = z_true > 0, z_true < 0
+    flipped = int(((m1 != 0) != pos).sum() + ((m3 != 0) != neg).sum())
+    assert flipped == 0, f"{flipped} of {2 * co} planted sign decisions differ from float64"
+    # the denominators, within f32 round-off of the sums behind them (a
+    # denominator far smaller than its terms is cancellation-limited)
+    den1 = chain.stabilize(conv64(gp(w))[at] + b1 + b2, stab)
+    den3 = chain.stabilize(z3_0[at], stab)
+    S1 = conv64(gp(w).abs())[at] + b1.abs() + b2.abs()
+    S3 = conv64(gn(w).abs())[at]
+    for got, den, scale, sel in ((m1, den1, S1, pos), (m3, den3, S3, neg)):
+        err = (1.0 / got[sel] - den[sel]).abs()
+        assert (err <= 1e-4 * den[sel].abs() + 1e-6 * scale[sel]).all(), err.max().item()
 
 
 @pytest.mark.parametrize("ci,co", [(8, 12), (6, 16), (136, 128), (64, 136)])

@@ -184,3 +184,76 @@ def test_tensor_core_tap_layouts(ci, co):
                     assert not wa[s, tap, c, ci:].any()
                 else:
                     assert not wa[s, tap, c].any()
+
+
+@pytest.mark.parametrize("ci,co", [(8, 16), (64, 100), (100, 128), (12, 20)])
+def test_gamma_nonneg_tap_layouts(ci, co):
+    """fused_gamma.pair_weights: w_prep as GammaConv's (the interleaved
+    forward pair), w_apply [Co/4, 9, 8, Ci rounded up to 8] the pair flipped
+    and transposed with its rows interleaved as the prep's (m1, m3) pairs
+    (reduction channel 2o + s reads wz1 (s = 0) or wz3 (s = 1) at
+    [o, i, 2 - dy, 2 - dx]); zeros past the counts; biases (b1, b0, b2)."""
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    rng = np.random.default_rng(ci + co)
+    w, b = t(rng.standard_normal((co, ci, 3, 3))), t(rng.standard_normal(co))
+    wp, wa, bias3 = (a.numpy() for a in fused_gamma.pair_weights(w, b, 0.3))
+    cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}},
+                                  tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
+    np.testing.assert_array_equal(wp, cv.w_prep.numpy())
+    np.testing.assert_array_equal(bias3, cv.biases.numpy())
+    pair = (cv.wz1.numpy(), cv.wz3.numpy())
+    assert wa.shape == (co // 4, 9, 8, -(-ci // 8) * 8)
+    for sl in range(wa.shape[0]):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            for c in range(8):
+                o, s = divmod(sl * 8 + c, 2)
+                np.testing.assert_array_equal(wa[sl, tap, c, :ci], pair[s][o, :, 2 - dy, 2 - dx])
+                assert not wa[sl, tap, c, ci:].any()
+
+
+def _gamma_nonneg_as_kernel(x, R, w, b, K, gamma, stab):
+    """gamma_nonneg_folded's two launches as the kernels index them, in f32
+    on the CPU: the prep's GEMM over the interleaved columns of w_prep, M =
+    (m1, m3) interleaved channels last, and the apply's GEMM over the 2*Co
+    channels R[o] * M[2o + s] against w_apply, tap (dy, dx) reading the
+    pixel (h + dy - 1, w + dx - 1) (the sums channels last, x, R and the
+    result NCHW as the kernels read and write them)."""
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    n, ci, H, W = x.shape
+    co = w.shape[0]
+    wf, wt, bias3 = fused_gamma.pair_weights(w, b, gamma)
+    b1, b0, b2 = bias3
+    inv = float(np.float32(1.0 / (2.0 + gamma)))
+    taps_f = wf.transpose(0, 1).reshape(9, -1, 2 * co)[:, :ci]          # [9, ci, 2co]
+    taps_a = wt.transpose(0, 1).reshape(9, 2 * co, -1)[..., :ci]        # [9, 2co, ci]
+    xp = torch.nn.functional.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+    z = sum(xp[:, dy:dy + H, dx:dx + W] @ taps_f[dy * 3 + dx] for dy in range(3) for dx in range(3))
+    z1, z3 = z[..., 0::2] + b1, z[..., 1::2]
+    zt = (z1 + z3 - b1) * inv + b0
+    m1 = torch.where(zt > 0, 1.0 / chain.stabilize(z1 + b2, stab), 0.0)
+    m3 = torch.where(zt < 0, 1.0 / chain.stabilize(z3, stab), 0.0)
+    M = torch.stack([m1, m3], dim=-1).reshape(n, H, W, 2 * co)
+    Rh = R.view(K, n, co, H, W).permute(1, 0, 3, 4, 2)
+    A = torch.nn.functional.pad(Rh.repeat_interleave(2, dim=-1) * M[:, None],
+                                (0, 0, 1, 1, 1, 1))
+    acc = sum(A[:, :, dy:dy + H, dx:dx + W] @ taps_a[dy * 3 + dx]
+              for dy in range(3) for dx in range(3))
+    out = x.permute(0, 2, 3, 1)[:, None] * acc                          # [n, K, H, W, ci]
+    return out.permute(1, 0, 4, 2, 3).reshape(K * n, ci, H, W)
+
+
+@pytest.mark.parametrize("n,K,ci,co,H,W", [(2, 3, 8, 16, 8, 8), (1, 2, 12, 20, 5, 6),
+                                           (2, 4, 32, 64, 9, 7)])
+def test_gamma_nonneg_kernel_indexing_matches_plain(n, K, ci, co, H, W):
+    """The kernels' layouts, emulated, give gamma_nonneg_folded_plain's
+    result (rtol 1e-4, atol 1e-5 * max|ref|)."""
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    rng = np.random.default_rng(n * K + ci + co)
+    x = t(np.maximum(rng.standard_normal((n, ci, H, W)), 0))
+    R = t(rng.standard_normal((K * n, co, H, W)))
+    w = t(rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
+    b = t(rng.standard_normal(co) * 0.05)
+    got = _gamma_nonneg_as_kernel(x, R, w, b, K, 0.3, 1e-7)
+    want = fused_gamma.gamma_nonneg_folded_plain(x, R, w, b, K, 0.3, 1e-7)
+    assert_close_lrp(got.numpy(), want.numpy())
