@@ -5,8 +5,8 @@
 
 1. Prints the card's name and power limit, builds the six CUDA kernels
    (csrc/*.cu, one nvcc each, in parallel), and counts the HMMA
-   (tensor-core) instructions in the SASS of chain_block, first_block_deep
-   and gamma_nonneg (cuobjdump): it fails where there are none.
+   (tensor-core) instructions in the SASS of chain_block, first_block_deep,
+   merged_tail and gamma_nonneg (cuobjdump): it fails where there are none.
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
    weights and U), with every launch counter set to 0 just before and read
@@ -30,9 +30,12 @@
    and merged_tail once each, first_layer never, per request), the checks
    of 2 and one request against the default multi-kernel path; one 32-clip
    toy request (8/16 channels, 64x64 mels) the same; then the two launches
-   of one 256-clip request held against their plain versions and timed,
-   and that request end to end, by stages and traced, as 4 and 5, with the
-   default request's peak device memory beside its own.
+   of one 256-clip request held against their plain versions and timed
+   (merged_tail also by launch: its chain_gamma_prep launches, the main
+   kernel and the rest of the wrapper's call on one line,
+   merged_tail_split_*), and that request end to end, by stages and traced,
+   as 4 and 5, with the default request's peak device memory beside its
+   own.
 6. The GTZAN-6s flagship at full width (filters 64/64/100/128/128, 6 s clips
    of 96,000 samples, 128x256 mels; seeded random weights and BatchNorm
    statistics, folded): three requests of 32 clips at DRSA layer 33 with the
@@ -62,8 +65,10 @@
    memory beside the default path's.
 10. The log-mel kernel (fused_logmel) on the peak-normalised waveforms of
    the 256-clip 3s, 64-clip 6s and 32-clip toy requests: launch count,
-   error against the plain version, and the kernel's, the plain version's
-   and the service's matmul-DFT logmel's times beside the bound.
+   error against the plain version and the service's matmul-DFT logmel, the
+   same bits on a second run, and the kernel's, the plain version's, the
+   matmul-DFT logmel's and the FFT logmel's (torch.fft.rfft, library_ms)
+   times beside the bound.
 
 The kernels line gives, for each kernel, its numbers per path under
 "paths" (3s, 3s_merged and 3s_shared at batch 256, 6s at batch 64,
@@ -72,10 +77,11 @@ frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
 batches of 10) and at its top level their sums over the paths (launches:
 the counts of the served requests of 2, 5m, 6 and 9 and the calls of 10;
 max_abs_err: the largest). The log-mel row also carries the matmul-DFT
-logmel's time. bound_ms is the least time for the work: the larger of
-bytes at 3.35 TB/s and flops at three TF32 products each at 495 TFLOP/s
-(3xTF32 on the tensor cores, the least time for f32-accurate products on
-this card); bound_tc_ms is the same number under its tensor-core name, and
+logmel's time, and as library_ms the port's logmel(use_matmul_dft=False)
+(cuFFT through torch.fft.rfft), which the port never calls on a path.
+bound_ms is the least time for the work: the larger of bytes at 3.35 TB/s
+and flops at three TF32 products each at 495 TFLOP/s (3xTF32 on the tensor
+cores, the least time for f32-accurate products on this card); bound_tc_ms is the same number under its tensor-core name, and
 bound_fma_ms the same with the flops at f32's 67 TFLOP/s on the FMA units.
 
 Tolerance for every comparison: rtol 1e-4, atol 1e-5 * max|plain| (the JAX
@@ -159,12 +165,12 @@ def bounds(flops: float, nbytes: float) -> dict:
 
 
 def hmma_counts(libs: dict) -> dict:
-    """The HMMA (tensor-core) instructions in the SASS of the three
+    """The HMMA (tensor-core) instructions in the SASS of the four
     tensor-core kernels' libraries, by cuobjdump; fails where there are
     none."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     counts = {}
-    for name in ("chain_block", "first_block_deep", "gamma_nonneg"):
+    for name in ("chain_block", "first_block_deep", "merged_tail", "gamma_nonneg"):
         sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True,
                               timeout=300, check=True).stdout
         counts[name] = sum("HMMA" in line for line in sass.splitlines())
@@ -235,11 +241,29 @@ def gamma_nonneg_split_ms(x, R, w, b, K, gamma=0.25, stabilizer=1e-6) -> dict:
     return out_ms
 
 
+def merged_tail_split_ms(R, xs, convs, apres, a1, fl) -> dict:
+    """merged_tail's launches timed apart on its own inputs (CUDA events, 5
+    calls each): the chain_gamma_prep launches together (one or two), the
+    main kernel on their output, and the rest of the wrapper's call (checks,
+    allocations, the host's time where the device waits for it) as the
+    whole call less both."""
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    preps = chain._merged_preps(xs, convs, apres)
+    whole = cuda_ms(lambda: chain.merged_tail(R, xs, convs, apres, a1, fl), 5)
+    out = {"prep_ms": cuda_ms(lambda: chain._merged_preps(xs, convs, apres), 5),
+           "main_ms": cuda_ms(lambda: chain._merged_main(R, xs, convs, a1, fl, preps), 5),
+           "ms": whole}
+    out["rest_ms"] = whole - out["prep_ms"] - out["main_ms"]
+    return out
+
+
 def logmel_work(wav, cfg):
     """The least work the function needs per kept frame: the window, a real
     FFT (2.5 * n_fft * log2 n_fft, half a complex FFT's 5 N log2 N; the
-    kernel's dense cos/sin products do about 65 times more at n_fft 800),
-    the magnitude, the filterbank's nonzeros (2 each) and the log epilogue.
+    kernel's four-step FFT of dense small DFTs does about 6 times more at
+    n_fft 800), the magnitude, the filterbank's nonzeros (2 each) and the
+    log epilogue.
     The waveform read once, the window and the filterbank's nonzeros read
     once, the log-mels written once."""
     from drsa_audio_tpu_torch.ops.mel import mel_filterbank
@@ -508,6 +532,10 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
                "plain_ms": min(ms_plain, ms_plain2), **bounds(flops, nbytes)}
         rows.append(row)
         emit({"phase": "kernel_vs_plain" + phase_tag(path), "batch": batch, "K": K, **row})
+        if name == "merged_tail":
+            with torch.inference_mode():
+                emit({"phase": "merged_tail_split" + phase_tag(path), "launch": i,
+                      **merged_tail_split_ms(*args)})
     return rows
 
 
@@ -713,9 +741,10 @@ def lower_segment_memory(svc, wavs, class_name, U, path) -> dict:
 def logmel_rows(wavs, cfg, path) -> list:
     """fused_logmel on the peak-normalised waveforms of a request: its launch
     count (counters set to 0 just before, read just after), its error
-    against the plain version (rtol 1e-4, atol 1e-4 in log10 units), and
-    the kernel's, the plain version's and the service's matmul-DFT
-    logmel's times beside the bound."""
+    against the plain version and the matmul-DFT logmel (rtol 1e-4, atol
+    1e-4 in log10 units), the same bits on a second run, and the kernel's,
+    the plain version's, the service's matmul-DFT logmel's and the FFT
+    logmel's (library_ms: torch.fft.rfft, cuFFT) times beside the bound."""
     import torch
     from drsa_audio_tpu_torch.ops import fused_frontend
     from drsa_audio_tpu_torch.ops.frontend import logmel, peak_normalize
@@ -733,14 +762,17 @@ def logmel_rows(wavs, cfg, path) -> list:
                           atol=1e-4)
         mm_err = check_close(f"{path} logmel vs matmul-DFT logmel", got, logmel(x, cfg),
                              atol=1e-4)
+        if not torch.equal(got, fused_frontend.fused_logmel(x, cfg)):
+            raise AssertionError(f"{path} logmel: two runs differ")
         ms = cuda_ms(lambda: fused_frontend.fused_logmel(x, cfg), 10)
         plain_ms = cuda_ms(lambda: fused_frontend.fused_logmel_plain(x, cfg), 5)
         mm_ms = cuda_ms(lambda: logmel(x, cfg), 10)
+        lib_ms = cuda_ms(lambda: logmel(x, cfg, use_matmul_dft=False), 10)
     flops, nbytes = logmel_work(x, cfg)
     row = {"name": "logmel", "launches": counts["logmel"], "wav": list(x.shape),
            "flops": flops, "bytes": nbytes, "max_abs_err": err,
            "max_abs_err_vs_matmul_dft": mm_err, "ms": ms, "plain_ms": plain_ms,
-           "matmul_dft_logmel_ms": mm_ms, **bounds(flops, nbytes)}
+           "matmul_dft_logmel_ms": mm_ms, "library_ms": lib_ms, **bounds(flops, nbytes)}
     emit({"phase": "logmel_vs_plain_" + path, **row})
     return [row]
 
@@ -970,6 +1002,7 @@ def main() -> int:
                 "bound_fma_ms": sum(r["bound_fma_ms"] for r in mine)}
             if name == "logmel":
                 paths[path]["matmul_dft_logmel_ms"] = mine[0]["matmul_dft_logmel_ms"]
+                paths[path]["library_ms"] = mine[0]["library_ms"]
         top = max(paths.values(), key=lambda v: v["bound_ms"])
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -985,6 +1018,7 @@ def main() -> int:
             "library_ms": None, "paths": paths}
         if name == "logmel":
             row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
+            row["library_ms"] = sum(v["library_ms"] for v in paths.values())
         kernels.append(row)
 
     emit({"kernels": kernels})

@@ -1,4 +1,5 @@
-// The tensor-core core of the chain kernels (chain_block.cu, first_block_deep.cu):
+// The tensor-core core of the chain kernels (chain_block.cu, first_block_deep.cu,
+// merged_tail.cu, gamma_nonneg.cu):
 // a 3x3 SAME conv, or its transpose, as an implicit GEMM in 3xTF32, fed by
 // asynchronous, double-buffered staging of channel slices.
 //
@@ -6,7 +7,7 @@
 // pixel of the block's tile, n an output channel; the reduction runs over
 // the 9 taps and the input channels, CC = 8 channels (one mma k-step) per
 // staged slice. The transposed conv is the same product with the flipped,
-// transposed taps (GammaConv.w_apply).
+// transposed taps (GammaConv.w_apply_tc).
 //
 // 3xTF32. Each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna), A once per staged value, B once per fragment element, and the

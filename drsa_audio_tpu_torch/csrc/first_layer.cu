@@ -62,28 +62,6 @@ __host__ __device__ inline int es_at(int C, int Wc) {
   return ws_at(C, Wc) + ((2 * Wc * (C / 4 + 1) + 3) & ~3);
 }
 
-// Position (row-major in the 2x2 window) of the first maximum of relu over
-// the window's four values, and f = relu_gate(a) / stab(z0) there: the
-// same decisions and rounding as route2x2, relu_gate and the plain version's
-// division.
-__device__ __forceinline__ float route_factor(float a0, float a1, float a2, float a3,
-                                              float z0, float z1, float z2, float z3,
-                                              float stab0, unsigned& win) {
-  float best = fmaxf(a0, 0.f), am = a0, z = z0, r;
-  win = 0;
-  r = fmaxf(a1, 0.f);
-  if (r > best) { best = r; am = a1; z = z1; win = 1; }
-  r = fmaxf(a2, 0.f);
-  if (r > best) { best = r; am = a2; z = z2; win = 2; }
-  r = fmaxf(a3, 0.f);
-  if (r > best) { am = a3; z = z3; win = 3; }
-  return __fdiv_rn(lrp::relu_gate(am), lrp::stabilize(z, stab0));
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
-}
-
 __global__ void __launch_bounds__(MAXT)
 first_layer_kernel(const float* __restrict__ R,     // [b,K,H/2,W/2,C]
                    const float* __restrict__ a1,    // [b,H,W,C]
@@ -131,10 +109,10 @@ first_layer_kernel(const float* __restrict__ R,     // [b,K,H/2,W/2,C]
         const float4 q3 = __ldg(reinterpret_cast<const float4*>(z0 + o + (size_t)W * C + C));
         unsigned w0, w1, w2, w3;
         float4 fv;
-        fv.x = route_factor(p0.x, p1.x, p2.x, p3.x, q0.x, q1.x, q2.x, q3.x, stab0, w0);
-        fv.y = route_factor(p0.y, p1.y, p2.y, p3.y, q0.y, q1.y, q2.y, q3.y, stab0, w1);
-        fv.z = route_factor(p0.z, p1.z, p2.z, p3.z, q0.z, q1.z, q2.z, q3.z, stab0, w2);
-        fv.w = route_factor(p0.w, p1.w, p2.w, p3.w, q0.w, q1.w, q2.w, q3.w, stab0, w3);
+        fv.x = lrp::route_factor(p0.x, p1.x, p2.x, p3.x, q0.x, q1.x, q2.x, q3.x, stab0, w0);
+        fv.y = lrp::route_factor(p0.y, p1.y, p2.y, p3.y, q0.y, q1.y, q2.y, q3.y, stab0, w1);
+        fv.z = lrp::route_factor(p0.z, p1.z, p2.z, p3.z, q0.z, q1.z, q2.z, q3.z, stab0, w2);
+        fv.w = lrp::route_factor(p0.w, p1.w, p2.w, p3.w, q0.w, q1.w, q2.w, q3.w, stab0, w3);
         *reinterpret_cast<float4*>(f + jj * CP + c4) = fv;
         wn[jj * WP + c4 / 4] = w0 | (w1 << 8) | (w2 << 16) | (w3 << 24);
       }
@@ -155,7 +133,7 @@ first_layer_kernel(const float* __restrict__ R,     // [b,K,H/2,W/2,C]
         const unsigned wp = wn[j * WP + c0 / 4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float v = __fmul_rn(comp(r4, e), comp(f4, e));
+          const float v = __fmul_rn(lrp::comp(r4, e), lrp::comp(f4, e));
           const unsigned win = (wp >> (8 * e)) & 3u;
           const float4 t0 = *reinterpret_cast<const float4*>(tq + (c0 + e) * TQ);
           const float4 t1 = *reinterpret_cast<const float4*>(tq + (c0 + e) * TQ + 4);

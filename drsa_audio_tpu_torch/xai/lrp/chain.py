@@ -120,16 +120,14 @@ class GammaConv:
     NHWC). wz1 = w + g*w+, wz3 = w + g*w- (OIHW); biases = (b + g*b+, b,
     b + g*b-). The kernels' tap layouts: ``w_prep`` [ceil(Ci/8), 9, 8, 2*Co]
     the forward pair interleaved (column 2j wz1's output channel j, 2j + 1
-    wz3's), ``w_apply`` [9, Co, Ci] the transposed wz1 (merged_tail), and
-    ``w_apply_tc`` the same as [ceil(Co/8), 9, 8, Ci rounded up to 8]
-    (chain_block, first_block_deep)."""
+    wz3's), and ``w_apply_tc`` [ceil(Co/8), 9, 8, Ci rounded up to 8] the
+    transposed wz1 (chain_block, first_block_deep, merged_tail)."""
     wz1: torch.Tensor
     wz3: torch.Tensor
     biases: torch.Tensor
     inv: float
     stab: float
     w_prep: torch.Tensor
-    w_apply: torch.Tensor
     w_apply_tc: torch.Tensor
 
     @property
@@ -157,7 +155,7 @@ def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
         inv=float(np.float32(1.0 / (2.0 + g))),
         stab=float(kwargs.get("stabilizer", 1e-6)),
         w_prep=slice_taps(pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co), 2 * co),
-        w_apply=w_apply, w_apply_tc=slice_taps(w_apply, -(-ci // 8) * 8))
+        w_apply_tc=slice_taps(w_apply, -(-ci // 8) * 8))
 
 
 @dataclasses.dataclass
@@ -448,7 +446,10 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
     tail per clone). Design: chain_gamma_prep writes the clone-shared
     multipliers once per instance, then one block per (32x32 heatmap tile,
     clone, instance) walks the merged convs with a halo that grows one pixel
-    per level on the way up and recomputes the overlap (see the source).
+    per level on the way up and recomputes the overlap, each transposed
+    conv a 3xTF32 implicit GEMM on the tensor cores (csrc/conv3x3_tc.cuh)
+    into shared memory, then scatters each coarse pixel onto its 4x4
+    heatmap patch and adds the patches in a fixed order (see the source).
 
     Allocates, on the device: G [b, h, w, Co] of the top conv (two merged
     convs only), M [b, 2h, 2w, C] of the bottom conv with the pool route
@@ -458,7 +459,7 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
     if R.device.type == "cpu":
         return merged_tail_plain(R, xs, convs, apres, a1, fl)
     check_cuda("merged_tail", R, a1, fl.z0, fl.taps, *xs, *apres,
-               *(t for cv in convs for t in (cv.w_prep, cv.w_apply, cv.biases)))
+               *(t for cv in convs for t in (cv.w_prep, cv.w_apply_tc, cv.biases)))
     m = len(convs)
     if m not in (1, 2) or len(xs) != m or len(apres) != m - 1:
         raise ValueError("merged_tail: the kernel takes one or two merged convs")
@@ -475,20 +476,35 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
         raise ValueError("merged_tail: relevance / activation shapes disagree")
     if b > 65535 or K > 65535:
         raise ValueError("merged_tail: batch and clones at most 65535")
-    stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
-    if m == 2:
-        G = _gamma_prep(xs[0], top, stream)
-        M = _gamma_prep(xs[1], bottom, stream, apres[0], (2, 2))
-        top_ptrs = (G.data_ptr(), xs[0].data_ptr(), top.w_apply.data_ptr())
-    else:
-        M = _gamma_prep(xs[0], bottom, stream)
-        top_ptrs = (None, None, None)           # not read with one merged conv
+    heat = _merged_main(R, xs, convs, a1, fl, _merged_preps(xs, convs, apres))
+    LAUNCHES["merged_tail"] += 1
+    return heat
+
+
+def _merged_preps(xs, convs, apres) -> tuple:
+    """merged_tail's chain_gamma_prep launches: (G of the top conv or None,
+    M of the bottom conv, the pool route between them folded in)."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream(xs[0].device).cuda_stream)
+    if len(convs) == 2:
+        return (_gamma_prep(xs[0], convs[0], stream),
+                _gamma_prep(xs[1], convs[1], stream, apres[0], (2, 2)))
+    return None, _gamma_prep(xs[0], convs[0], stream)
+
+
+def _merged_main(R, xs, convs, a1, fl, preps) -> torch.Tensor:
+    """merged_tail's main launch (csrc/merged_tail.cu) on the preps' G and M."""
+    (G, M), m = preps, len(convs)
+    b, K = R.shape[:2]
+    H, W, C = a1.shape[1:]
+    top, bottom = convs[0], convs[-1]
+    top_ptrs = ((G.data_ptr(), xs[0].data_ptr(), top.w_apply_tc.data_ptr()) if m == 2
+                else (None, None, None))        # not read with one merged conv
     heat = torch.empty((b, K, H, W), device=R.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
     raise_on(_lib("merged_tail").merged_tail(
-        R.data_ptr(), *top_ptrs, M.data_ptr(), xs[-1].data_ptr(), bottom.w_apply.data_ptr(),
+        R.data_ptr(), *top_ptrs, M.data_ptr(), xs[-1].data_ptr(), bottom.w_apply_tc.data_ptr(),
         a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
         b, K, H, W, C, bottom.co, top.co, m, fl.stab0, stream), "merged_tail")
-    LAUNCHES["merged_tail"] += 1
     return heat
 
 

@@ -329,6 +329,21 @@ def test_merged_tail_kernel_matches_plain(cuda, H, W, C, C6, m, rule):
     _close(got, chain.merged_tail_plain(*args))
 
 
+@pytest.mark.parametrize("H,W,C,C6,m,rule", [
+    (128, 128, 32, 64, 2, "wsquare"),   # two merged convs
+    (40, 72, 8, 16, 2, "flat"),         # ragged tiles
+    (128, 128, 32, 64, 1, "wsquare"),   # one merged conv
+    (36, 20, 8, 16, 1, "flat"),
+])
+def test_merged_tail_kernel_is_deterministic(cuda, H, W, C, C6, m, rule):
+    """Runs on the same inputs give the same bits: each heatmap pixel adds
+    its four patches in a fixed order, no atomics."""
+    args = _merged_inputs(np.random.default_rng(8), cuda, 2, 4, H, W, C, C6, m, rule)
+    first = chain.merged_tail(*args)
+    for _ in range(3):
+        assert torch.equal(first, chain.merged_tail(*args))
+
+
 def test_merged_tail_kernel_refuses_unsupported_counts(cuda):
     args = _merged_inputs(np.random.default_rng(3), cuda, 1, 2, 32, 32, 16, 32, 2, "flat")
     n0 = chain.LAUNCHES["merged_tail"]
@@ -524,3 +539,63 @@ def test_logmel_kernel_refuses_unsupported_sizes(cuda):
     cfg = frontend.FrontendConfig.for_case("toy")
     with pytest.raises(ValueError, match="cudaErrorInvalidValue"):
         fused_frontend.fused_logmel(torch.zeros((2, 1000), device=cuda), cfg)
+
+
+def _logmel_case(case, b, seed, length=None):
+    from drsa_audio_tpu_torch.ops import frontend
+    cfg = frontend.FrontendConfig.for_case(case)
+    n = length or cfg.sample_rate * cfg.slice_length
+    wav = np.random.default_rng(seed).standard_normal((b, n)) * 0.3
+    return cfg, wav.astype(np.float32)
+
+
+def _logmel_close(wav, cfg):
+    """The kernel (one launch) against the plain version and the matmul-DFT
+    logmel at rtol 1e-4, atol 1e-4 in log10 units; returns the kernel's."""
+    from drsa_audio_tpu_torch.ops import frontend, fused_frontend
+    n0 = fused_frontend.LAUNCHES["logmel"]
+    got = fused_frontend.fused_logmel(wav, cfg)
+    assert fused_frontend.LAUNCHES["logmel"] == n0 + 1
+    assert got.shape == (wav.shape[0], cfg.n_mels, cfg.width)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused_frontend.fused_logmel_plain(wav, cfg),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, frontend.logmel(wav, cfg), rtol=1e-4, atol=1e-4)
+    return got
+
+
+@pytest.mark.parametrize("case", ["toy", "gtzan", "gtzan_6s"])
+def test_logmel_kernel_is_deterministic(cuda, case):
+    from drsa_audio_tpu_torch.ops import frontend, fused_frontend
+    cfg, wav = _logmel_case(case, 5, 11)
+    wav = frontend.peak_normalize(torch.as_tensor(wav, device=cuda))
+    first = fused_frontend.fused_logmel(wav, cfg)
+    for _ in range(3):
+        assert torch.equal(first, fused_frontend.fused_logmel(wav, cfg))
+
+
+@pytest.mark.parametrize("case,length,width", [
+    ("gtzan", 43000, 118),     # 120 frames, the last tile 6 of 16, reflect at the end
+    ("toy", 12345, 50),        # 52 frames, the last tile 2 of 16
+    ("gtzan_6s", 96000, 263),  # every frame but the crop's, 263 = 16 * 16 + 7
+])
+def test_logmel_kernel_at_ragged_frame_counts(cuda, case, length, width):
+    """A kept-frame count that is not a multiple of the block's 16-frame
+    tile: the last tile keeps fewer frames, and its span runs into the
+    reflect pad at the clip's end."""
+    from drsa_audio_tpu_torch.ops import frontend
+    cfg, wav = _logmel_case(case, 3, 12, length)
+    cfg = cfg._replace(width=width)
+    _logmel_close(frontend.peak_normalize(torch.as_tensor(wav, device=cuda)), cfg)
+
+
+@pytest.mark.parametrize("case", ["toy", "gtzan"])
+def test_logmel_kernel_loud_beside_silent(cuda, case):
+    """A loud clip (noise at 1e3 times full scale, not normalised) beside a
+    silent one (all -4) and a quiet one (1e-3 of full scale)."""
+    cfg, wav = _logmel_case(case, 3, 13)
+    wav[0] *= 1e3 / np.abs(wav[0]).max()
+    wav[1] = 0.0
+    wav[2] *= 1e-3 / np.abs(wav[2]).max()
+    got = _logmel_close(torch.as_tensor(wav, device=cuda), cfg)
+    assert bool((got[1] == -4.0).all()) and got[0].max().item() > 4.0

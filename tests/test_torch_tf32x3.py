@@ -257,3 +257,44 @@ def test_gamma_nonneg_kernel_indexing_matches_plain(n, K, ci, co, H, W):
     got = _gamma_nonneg_as_kernel(x, R, w, b, K, 0.3, 1e-7)
     want = fused_gamma.gamma_nonneg_folded_plain(x, R, w, b, K, 0.3, 1e-7)
     assert_close_lrp(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("model,layer,d", [("gtzan3s", 10, 64), ("gtzan3s", 7, 64),
+                                           ("toy", 10, 16), ("toy", 7, 16)])
+def test_merged_tail_in_3xtf32_matches_f32(model, layer, d, monkeypatch):
+    """The merged tail's recorded call (merged-tail switch on: two merged
+    convs at layer 10, one at layer 7) with every gamma-conv product in
+    3xTF32, as csrc/merged_tail.cu and its chain_gamma_prep launches take
+    them, against pure f32 (the first-layer tail stays f32 on the FMA
+    units in the kernel, so it is not emulated); no prep sign decision
+    flipped."""
+    monkeypatch.delenv("DRSA_CHAIN_MERGED", raising=False)
+    monkeypatch.setattr(chain, "CHAIN_MERGED", True)
+    _, _, specs, params, nm, _, _, hw, _ = both_models(model)
+    sp = insert_projection(specs, layer, t(signed_permutation(5, d)), 4, input_size=hw)
+    x = t(np.random.default_rng(7).standard_normal((2, 1) + hw))
+    comp = texp.class_composite(nm, 4)
+    calls = []
+    orig = chain.merged_tail
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+    with torch.no_grad(), monkeypatch.context() as m:
+        m.setattr(chain, "merged_tail", rec)
+        texp.subspace_heatmaps(sp, params, x, comp, 4, class_idx=0)
+    assert len(calls) == 1
+    args = calls[0]
+    assert len(args[2]) == (2 if layer == 10 else 1)
+    want = chain.merged_tail_plain(*args)
+    with monkeypatch.context() as m:
+        m.setattr(chain, "conv2d_same_nhwc", x3(chain.conv2d_same_nhwc))
+        m.setattr(chain, "_conv_t_nhwc", x3(chain._conv_t_nhwc))
+        got = chain.merged_tail_plain(*args)
+    assert_close_lrp(got.numpy(), want.numpy())
+    flips = 0
+    for xin, cv in zip(args[1], args[2]):
+        zw, gw = prep_decisions(xin, cv, _conv_same)
+        zg, gg = prep_decisions(xin, cv, x3(_conv_same))
+        flips += int((zw != zg).sum()) + int((gw != gg).sum())
+    assert flips == 0
