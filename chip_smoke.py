@@ -69,13 +69,35 @@
    same bits on a second run, and the kernel's, the plain version's, the
    matmul-DFT logmel's and the FFT logmel's (torch.fft.rfft, library_ms)
    times beside the bound.
+11. Fit then serve. GTZAN-3s at layer 10, all 10 classes: 300 seeded
+   noise clips a class through the service's front-end, preprocess_data
+   (20 locations a clip, attribution in chunks of 64: 6,000 vectors a
+   class), the extraction of 4 clips on the card against the CPU (the
+   captured maps, LRP tolerance), normalize_vectors, 30 steps of drsa_fit
+   on the card against the CPU from one U0 (objectives at rtol 2e-2), one
+   fit_batched of the 10 classes (3 runs x 5,000 Newton-Schulz steps, seed
+   42; 100 more steps traced for the device's busy time a step), every U
+   orthogonal (1e-4) and every best run ending above its start; every run
+   saved (save_drsa_run) and each class's best loaded back bit-equal; an
+   ExplainerService with the loaded Us serving one 32-clip request for two
+   classes (checked as 2); HeatmapGenerator with a fitted U on 64 clips in
+   chunks of 32 (chain_block 6, first_layer 2, counters set to 0 just
+   before and read just after), its maps against subspace_heatmaps(...,
+   fused=False) on the same chunks, then one 32-clip chunk with
+   shared_denominators=True (gamma_nonneg 3, no chain kernel);
+   get_prototypes (10 subsets of 10 clips). GTZAN-6s at layer 33: 64 clips
+   extracted, fit (3 runs x 5,000 steps), HeatmapGenerator on 32 clips
+   (chain_block 4, first_block_deep 1). Times: extraction per 64-clip
+   chunk, fit wall time and ms per step, the generator per chunk with its
+   peak memory.
 
 The kernels line gives, for each kernel, its numbers per path under
 "paths" (3s, 3s_merged and 3s_shared at batch 256, 6s at batch 64,
 6s_shared at batch 32, per request: the launches of one request summed;
 frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
 batches of 10) and at its top level their sums over the paths (launches:
-the counts of the served requests of 2, 5m, 6 and 9 and the calls of 10;
+the counts of the served requests of 2, 5m, 6 and 9, the calls of 10 and
+the counted runs of 11, the last also apart under fit_then_serve_launches;
 max_abs_err: the largest). The log-mel row also carries the matmul-DFT
 logmel's time, and as library_ms the port's logmel(use_matmul_dft=False)
 (cuFFT through torch.fft.rfft), which the port never calls on a path.
@@ -431,6 +453,32 @@ def traced_request(run) -> dict:
             "device_idle_share": 1.0 - busy / total, "top": rows[:10]}
 
 
+def counted(name: str, run, counts: dict):
+    """``run()`` with every launch counter set to 0 just before and read
+    just after; fails unless the counts are ``counts`` (a kernel left out
+    at 0). Returns (what ``run`` returned, the counts)."""
+    reset_counts()
+    out = run()
+    got = launch_counts()
+    want = {k: counts.get(k, 0) for k in SOURCES}
+    if got != want:
+        raise AssertionError(f"{name}: launch counts {got}, expected {want}")
+    return out, got
+
+
+def check_heatmaps(name: str, std: np.ndarray, sub: np.ndarray, shape) -> None:
+    """Standard maps [b, 1, h, w] and subspace maps [b, K, h, w] for
+    ``shape`` (b, h, w): finite, and the standard map the sum of the
+    subspace maps (rtol 1e-5)."""
+    b, h, w = shape
+    if std.shape != (b, 1, h, w) or sub.shape != (b, K, h, w):
+        raise AssertionError(f"{name}: heatmap shapes {std.shape}, {sub.shape}")
+    if not (np.isfinite(std).all() and np.isfinite(sub).all()):
+        raise AssertionError(f"{name}: heatmaps not finite")
+    np.testing.assert_allclose(std[:, 0], sub.sum(axis=1), rtol=1e-5,
+                               atol=1e-6 * np.abs(std).max(), err_msg=name)
+
+
 def serve_checks(svc, wavs, class_names, shape, counts, name, vs_default=False) -> dict:
     """Serve one request per class with every launch counter set to 0 just
     before and read just after; check the launch counts, the heatmaps'
@@ -441,21 +489,13 @@ def serve_checks(svc, wavs, class_names, shape, counts, name, vs_default=False) 
     import torch
     from drsa_audio_tpu_torch.xai.lrp import chain
 
-    reset_counts()
     t0 = time.time()
-    outs = [svc.explain(w, c) for w, c in zip(wavs, class_names)]
+    outs, launches = counted(name, lambda: [svc.explain(w, c) for w, c in zip(wavs, class_names)],
+                             {k: n * len(class_names) for k, n in counts.items()})
     seconds = time.time() - t0
-    launches = launch_counts()
-    want_counts = {k: counts.get(k, 0) * len(class_names) for k in SOURCES}
-    if launches != want_counts:
-        raise AssertionError(f"{name}: launch counts {launches}, expected {want_counts}")
-    b, h, w = shape
     for out in outs:
-        std, sub = out["standard_heatmaps"], out["subspace_heatmaps"]
-        assert std.shape == (b, 1, h, w) and sub.shape == (b, K, h, w), (std.shape, sub.shape)
-        assert np.isfinite(std).all() and np.isfinite(sub).all()
-        np.testing.assert_allclose(std[:, 0], sub.sum(axis=1), rtol=1e-5,
-                                   atol=1e-6 * np.abs(std).max())
+        check_heatmaps(name, out["standard_heatmaps"], out["subspace_heatmaps"], shape)
+    b = shape[0]
     got, _ = svc._dispatch(wavs[0], class_names[0])
     want, _ = svc._dispatch(wavs[0], class_names[0], fused=False)
     torch.cuda.synchronize()
@@ -611,13 +651,8 @@ def serve_shared(svc, wavs, class_names, U, n_gamma, name, strict_clips=8) -> di
     counts, first = [], None
     t0 = time.time()
     for w, c in zip(wavs, class_names):
-        reset_counts()
-        heat, mels, sp, mask = shared_dispatch(svc, w, c, U)
-        torch.cuda.synchronize()
-        got = launch_counts()
-        want = {k: (n_gamma if k == "gamma_nonneg" else 0) for k in SOURCES}
-        if got != want:
-            raise AssertionError(f"{name}: launch counts {got}, expected {want}")
+        (heat, mels, sp, mask), got = counted(name, lambda: shared_dispatch(svc, w, c, U),
+                                              {"gamma_nonneg": n_gamma})
         counts.append(got)
         b, _, h, wd = heat.shape
         assert heat.shape[1] == K + 1 and torch.isfinite(heat).all()
@@ -751,12 +786,7 @@ def logmel_rows(wavs, cfg, path) -> list:
 
     with torch.inference_mode():
         x = peak_normalize(torch.as_tensor(np.asarray(wavs, np.float32), device="cuda"))
-        reset_counts()
-        got = fused_frontend.fused_logmel(x, cfg)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        if counts != {k: int(k == "logmel") for k in SOURCES}:
-            raise AssertionError(f"{path}: launch counts {counts}")
+        got, counts = counted(path, lambda: fused_frontend.fused_logmel(x, cfg), {"logmel": 1})
         assert got.shape == (len(wavs), cfg.n_mels, cfg.width) and torch.isfinite(got).all()
         err = check_close(f"{path} logmel", got, fused_frontend.fused_logmel_plain(x, cfg),
                           atol=1e-4)
@@ -801,6 +831,260 @@ def random_bn_stats(params: dict, seed: int) -> dict:
             out[name] = {k: torch.as_tensor(v.astype(np.float32), device=p["running_var"].device)
                          for k, v in draw.items()}
     return out
+
+
+N_FIT_CLIPS, N_LOCATIONS, FIT_STEPS, FIT_RUNS, B_GEN = 300, 20, 5000, 3, 64
+
+
+def seeded_mels(seed: int, n: int, cfg):
+    """``n`` seeded noise clips (0.3 standard deviation, drawn on the card)
+    through the service's front-end: [n, 1, mels, frames]."""
+    import torch
+    from drsa_audio_tpu_torch.ops.frontend import logmel, peak_normalize
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        wavs = torch.randn((n, cfg.slice_length * cfg.sample_rate), generator=g,
+                           device="cuda") * 0.3
+        return logmel(peak_normalize(wavs), cfg)[:, None]
+
+
+def check_fit(res, name: str) -> dict:
+    """Every fitted U orthogonal (max|U^T U - I| <= 1e-4) and every best
+    run's final objective above its first; returns the first and last
+    objective of each best run."""
+    import torch
+    U = res.U
+    err = (U.transpose(-2, -1) @ U - torch.eye(U.shape[-1], device=U.device)).abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"{name}: max|U^T U - I| = {err}")
+    objs = res.objectives.reshape(-1, *res.objectives.shape[-2:]).cpu()
+    best = res.best_run.reshape(-1).tolist()
+    first = [objs[p, r, 0].item() for p, r in enumerate(best)]
+    last = [objs[p, r, -1].item() for p, r in enumerate(best)]
+    if not all(b > a for a, b in zip(first, last)):
+        raise AssertionError(f"{name}: a best run ended at or below its start: {first} -> {last}")
+    return {"orthogonality_max_err": err, "best_run": best, "first_objective": first,
+            "last_objective": last}
+
+
+def generator_checks(gen, x, attr_batch_size, counts, name) -> tuple:
+    """HeatmapGenerator.generate_subspace_heatmaps on ``x`` with every
+    launch counter set to 0 just before and read just after; the heatmaps
+    finite, the standard map the sum of the subspace maps (rtol 1e-5), and
+    the subspace maps, unsorted by the generator's mask, and the standard
+    map against subspace_heatmaps(..., fused=False) on the generator's
+    specs_proj and the same chunks. Then the call again, timed on the host
+    clock (readback and sort included), with its peak device memory.
+    Returns (the line, the launch counts)."""
+    import torch
+    from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
+
+    sub, got = counted(name, lambda: gen.generate_subspace_heatmaps(
+        x, attr_batch_size=attr_batch_size), counts)
+    std = gen.info["standard_heatmaps"]
+    check_heatmaps(name, std, sub, (len(x), *x.shape[-2:]))
+    raw = np.empty_like(sub)
+    raw[np.arange(len(sub))[:, None], gen.info["mask"]] = sub
+    onehot = torch.zeros(gen.num_classes, device="cuda")
+    onehot[gen.class_idx] = 1.0
+    with torch.inference_mode():
+        plain = torch.cat([subspace_heatmaps(gen.specs_proj, gen.params, x[i:i + attr_batch_size],
+                                             gen.composite, gen.num_concepts,
+                                             output_mask=lambda lg: lg * onehot, fused=False)[0]
+                           for i in range(0, len(x), attr_batch_size)]).cpu()
+    err = check_close(f"{name} subspace maps vs plain", torch.as_tensor(raw), plain[:, 1:])
+    err_std = check_close(f"{name} standard maps vs plain", torch.as_tensor(std), plain[:, :1])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen.generate_subspace_heatmaps(x, attr_batch_size=attr_batch_size)
+    ms = (time.perf_counter() - t0) * 1e3
+    chunks = -(-len(x) // attr_batch_size)
+    return ({"phase": name, "batch": len(x), "attr_batch_size": attr_batch_size, "launches": got,
+             "max_abs_err_vs_plain": err, "standard_max_abs_err_vs_plain": err_std,
+             "max_abs_plain": plain.abs().max().item(), "ms": ms, "ms_per_chunk": ms / chunks,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, got)
+
+
+def fit_then_serve_3s(card: str) -> dict:
+    """Phase 11, GTZAN-3s: extract, fit, save and load, serve. Returns the
+    launch counts of its counted runs."""
+    import tempfile
+
+    import torch
+    from drsa_audio_tpu_torch.models.vgg import build_layer_specs, gtzan_3s_config, init_params
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.utils.device import params_on
+    from drsa_audio_tpu_torch.utils.evaluation import load_projection_matrix, save_drsa_run
+    from drsa_audio_tpu_torch.xai.drsa import optimizer
+    from drsa_audio_tpu_torch.xai.drsa.preprocessing import (
+        extract_act_rel_maps, normalize_vectors, preprocess_data)
+    from drsa_audio_tpu_torch.xai.drsa.prototypes import get_prototypes
+    from drsa_audio_tpu_torch.xai.explain import HeatmapGenerator
+    from drsa_audio_tpu_torch.xai.lrp.engine import Composite
+
+    specs = build_layer_specs(gtzan_3s_config())
+    params = init_params(specs, seed=0, device="cuda")
+    cfg = FrontendConfig.for_case("gtzan")
+    comp = Composite.from_list(LRP_NAME_MAP_GTZAN)
+    classes = list(CLASS_IDX_MAPPER)
+    launches = {}
+
+    # extraction: 300 clips a class, 20 locations a clip, every class
+    data, extract_s = [], 0.0
+    for i, cls in enumerate(classes):
+        mels = seeded_mels(1000 + i, N_FIT_CLIPS, cfg)
+        if i == 0:
+            mels0 = mels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, c = preprocess_data(specs, params, mels, comp, 10, CLASS_IDX_MAPPER[cls],
+                               num_locations=N_LOCATIONS, generator=i, attr_batch_size=64)
+        torch.cuda.synchronize()
+        extract_s += time.perf_counter() - t0
+        if a.shape != (N_FIT_CLIPS * N_LOCATIONS, 64) or not (
+                torch.isfinite(a).all() and torch.isfinite(c).all()):
+            raise AssertionError(f"3s extraction {cls}: {tuple(a.shape)} or not finite")
+        data.append((normalize_vectors(a), normalize_vectors(c)))
+    with torch.no_grad():
+        chunk_ms = cuda_ms(lambda: extract_act_rel_maps(specs, params, mels0[:64], comp, 10, 0), 5)
+        got = extract_act_rel_maps(specs, params, mels0[:4], comp, 10, 0)
+        want = extract_act_rel_maps(specs, params_on(params, "cpu"), mels0[:4].cpu(), comp,
+                                    10, 0)
+    emit({"phase": "fit_then_serve_3s_extract", "card": card, "classes": len(classes),
+          "clips_per_class": N_FIT_CLIPS, "locations": N_LOCATIONS,
+          "vectors_per_class": list(data[0][0].shape), "seconds": extract_s,
+          "ms_per_64_clip_chunk": chunk_ms,
+          "activation_max_abs_err_card_vs_cpu": check_close(
+              "3s extraction activations, card vs CPU", got[0].cpu(), want[0]),
+          "relevance_max_abs_err_card_vs_cpu": check_close(
+              "3s extraction relevances, card vs CPU", got[1].cpu(), want[1])})
+
+    # the optimiser on the card against the CPU, 30 steps from one U0
+    a, c = data[0]
+    U0 = optimizer.init_runs(42, 64, FIT_RUNS)
+    on_card = optimizer.drsa_fit(U0, a, c, K, 30, "ns").objectives.cpu()
+    on_cpu = optimizer.drsa_fit(U0, a.cpu(), c.cpu(), K, 30, "ns", device="cpu").objectives
+    rel_err = ((on_card - on_cpu).abs() / on_cpu.abs()).max().item()
+    if not rel_err <= 2e-2:
+        raise AssertionError(f"3s drsa_fit card vs CPU: max rel err {rel_err} over 30 steps")
+
+    # one fit of every class: 10 pairs x 3 runs, 5,000 steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = optimizer.fit_batched(data, K, FIT_STEPS, FIT_RUNS, 42, "ns")
+    res.best_run.tolist()
+    fit_s = time.perf_counter() - t0
+    fit = check_fit(res, "3s fit")
+    trace = traced_request(lambda: optimizer.fit_batched(data, K, 100, FIT_RUNS, 42,
+                                                         "ns").best_run.tolist())
+    emit({"phase": "fit_then_serve_3s_fit", "card": card, "pairs": len(classes),
+          "runs": FIT_RUNS, "steps": FIT_STEPS, "d": 64, "fit_seconds": fit_s,
+          "ms_per_step": fit_s * 1e3 / FIT_STEPS, "objective_max_rel_err_card_vs_cpu_30": rel_err,
+          "trace_100_steps": {"ms_per_step_traced": trace["request_ms"] / 100,
+                              "device_busy_ms_per_step": trace["device_busy_ms"] / 100,
+                              "top": trace["top"][:5]}, **fit})
+
+    # save every run, load each class's best
+    Us = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for p, cls in enumerate(classes):
+            for r in range(FIT_RUNS):
+                save_drsa_run(os.path.join(tmp, cls, f"run{r}"), res.U[p, r], res.objectives[p, r])
+            Us[cls] = load_projection_matrix(os.path.join(tmp, cls))
+            if not np.array_equal(Us[cls], res.U[p, fit["best_run"][p]].cpu().numpy()):
+                raise AssertionError(f"3s {cls}: the loaded U is not the saved best run's")
+
+    # the service with the loaded Us: one 32-clip request for two classes
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN, Us, K, 10, case="gtzan")
+    rng = np.random.default_rng(11)
+    wavs = [(rng.standard_normal((B_SERVE, 48000)) * 0.3).astype(np.float32) for _ in range(2)]
+    serve = serve_checks(svc, wavs, classes[:2], (B_SERVE, 128, 128),
+                         {"chain_block": 3, "first_layer": 1}, "fit_then_serve_3s_serve")
+    launches["serve"] = serve["launches"]
+    emit({**serve, "card": card})
+    del svc
+
+    # HeatmapGenerator with a fitted U: 64 clips in chunks of 32, then one
+    # shared-denominator chunk
+    gen = HeatmapGenerator(specs=specs, params=params, U=Us[classes[0]],
+                           name_map=LRP_NAME_MAP_GTZAN, sample_class=classes[0])
+    line, launches["generator"] = generator_checks(
+        gen, mels0[:B_GEN], 32, {"chain_block": 6, "first_layer": 2},
+        "fit_then_serve_3s_generator")
+    emit({**line, "card": card})
+    sub, launches["generator_shared"] = counted(
+        "3s shared generator",
+        lambda: gen.generate_subspace_heatmaps(mels0[:32], shared_denominators=True),
+        {"gamma_nonneg": 3})
+    check_heatmaps("3s shared generator", gen.info["standard_heatmaps"], sub, (32, 128, 128))
+
+    # prototypes: 10 subsets of 10 clips under the fitted U
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proto = get_prototypes(specs, params, 10, Us[classes[0]], comp, mels0[:100], num_concepts=K,
+                           n=10, class_idx=0)
+    proto_ms = (time.perf_counter() - t0) * 1e3
+    if (proto.objectives.shape != (10,) or not np.isfinite(proto.objectives).all()
+            or proto.subset_index != int(np.argmax(proto.objectives))
+            or tuple(proto.act_vecs.shape) != (10 * 16 * 16, 64)):
+        raise AssertionError(f"3s prototypes: {proto.objectives}, {proto.subset_index}")
+    emit({"phase": "fit_then_serve_3s_prototypes", "card": card, "clips": 100, "n": 10,
+          "subset_index": proto.subset_index, "objectives": proto.objectives.tolist(),
+          "ms": proto_ms, "shared_generator_launches": launches["generator_shared"]})
+    return {k: sum(c[k] for c in launches.values()) for k in SOURCES}
+
+
+def fit_then_serve_6s(card: str) -> dict:
+    """Phase 11, GTZAN-6s at layer 33: extract 64 clips, fit, serve 32 with
+    HeatmapGenerator. Returns the launch counts of its counted run."""
+    import torch
+    from drsa_audio_tpu_torch.models.vgg import (
+        build_layer_specs, fold_batchnorm, gtzan_6s_config, init_params)
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig
+    from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, LRP_NAME_MAP_GTZAN_6S
+    from drsa_audio_tpu_torch.xai.drsa import optimizer
+    from drsa_audio_tpu_torch.xai.drsa.preprocessing import (
+        extract_act_rel_maps, normalize_vectors, preprocess_data)
+    from drsa_audio_tpu_torch.xai.explain import HeatmapGenerator
+    from drsa_audio_tpu_torch.xai.lrp.engine import Composite
+
+    specs = build_layer_specs(gtzan_6s_config())
+    specs, params = fold_batchnorm(specs, random_bn_stats(
+        init_params(specs, seed=0, device="cuda"), seed=1))
+    comp = Composite.from_list(LRP_NAME_MAP_GTZAN_6S)
+    mels = seeded_mels(2000, B_GEN, FrontendConfig.for_case("gtzan_6s"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, c = preprocess_data(specs, params, mels, comp, 33, CLASS_IDX_MAPPER["metal"],
+                           num_locations=N_LOCATIONS, generator=0)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    if a.shape != (B_GEN * N_LOCATIONS, 128) or not torch.isfinite(c).all():
+        raise AssertionError(f"6s extraction: {tuple(a.shape)} or not finite")
+    with torch.no_grad():
+        chunk_ms = cuda_ms(lambda: extract_act_rel_maps(specs, params, mels, comp, 33, 1), 3)
+    a, c = normalize_vectors(a), normalize_vectors(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = optimizer.fit(a, c, K, FIT_STEPS, FIT_RUNS, 42, "ns")
+    best = int(res.best_run)
+    fit_s = time.perf_counter() - t0
+    emit({"phase": "fit_then_serve_6s_fit", "card": card, "layer": 33, "d": 128, "clips": B_GEN,
+          "vectors": list(a.shape), "extract_seconds": extract_s, "ms_per_64_clip_chunk": chunk_ms,
+          "runs": FIT_RUNS, "steps": FIT_STEPS, "fit_seconds": fit_s,
+          "ms_per_step": fit_s * 1e3 / FIT_STEPS, **check_fit(res, "6s fit")})
+    gen = HeatmapGenerator(specs=specs, params=params, U=res.U[best],
+                           name_map=LRP_NAME_MAP_GTZAN_6S, sample_class="metal", layer_idx=33,
+                           case="gtzan_6s")
+    line, counts = generator_checks(gen, mels[:B_SERVE], B_SERVE,
+                                    {"chain_block": 4, "first_block_deep": 1},
+                                    "fit_then_serve_6s_generator")
+    emit({**line, "card": card})
+    return counts
 
 
 def main() -> int:
@@ -985,6 +1269,12 @@ def main() -> int:
         rows[path] = logmel_rows(w, FrontendConfig.for_case(case), path)
         launches[path] = {"logmel": rows[path][0]["launches"]}
 
+    # --------------------------------------------------- fit then serve
+    fitted = {"fit_then_serve_3s": fit_then_serve_3s(card)}
+    torch.cuda.empty_cache()
+    fitted["fit_then_serve_6s"] = fit_then_serve_6s(card)
+    torch.cuda.empty_cache()
+
     kernels = []
     for name in SOURCES:
         paths = {}
@@ -1016,6 +1306,10 @@ def main() -> int:
             "bound_tc_ms": sum(v["bound_tc_ms"] for v in paths.values()),
             "bound_fma_ms": sum(v["bound_fma_ms"] for v in paths.values()),
             "library_ms": None, "paths": paths}
+        # phase 11 serves through the kernels of 2 and 6 at their shapes;
+        # its counted launches join the sum, its kernels are timed above
+        row["fit_then_serve_launches"] = {p: c[name] for p, c in fitted.items()}
+        row["launches"] += sum(c[name] for c in fitted.values())
         if name == "logmel":
             row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
             row["library_ms"] = sum(v["library_ms"] for v in paths.values())

@@ -18,6 +18,7 @@ from drsa_audio_tpu_torch.models.projection import insert_projection
 from drsa_audio_tpu_torch.models.vgg import LayerSpec
 from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
 from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY
+from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
 from drsa_audio_tpu_torch.xai.explain import (
     class_composite, sort_subspaces, subspace_heatmaps)
 
@@ -41,19 +42,10 @@ class ExplainerService:
                  Us: dict, num_concepts: int, layer_idx: int,
                  case: str = "gtzan", class_idx_mapper: dict | None = None,
                  device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("ExplainerService: no CUDA device; pass "
-                                   "device='cpu' to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        self.device = resolve_device(device, "ExplainerService")
         self.config = FrontendConfig.for_case(case)
         self.specs = list(specs)
-        self.params = {n: {k: v.to(self.device) for k, v in p.items()}
-                       for n, p in params.items()}
+        self.params = params_on(params, self.device)
         self.num_concepts = num_concepts
         self.layer_idx = layer_idx
         self.mapper = class_idx_mapper or (

@@ -4,7 +4,10 @@ The fast path of the JAX package: the forward and ONE upper LRP backward run
 on the unrepeated batch down to the subspace filter; the K concept maskings
 of the filter relevance then go through the lower segment as K clones
 (LRP backward is linear in R for fixed activations), and the standard
-heatmap is their sum.
+heatmap is their sum. ``subspace_heatmaps_repeated`` is the reference's
+scheme (each clip repeated K+1 times, one whole LRP pass), kept to check the
+fast path. ``HeatmapGenerator`` is the reference-facing class around the
+fast path.
 
 By default the conv section of the lower segment is recorded channels-last
 (NHWC), the layout the chain kernels read, and the lower segment runs
@@ -20,16 +23,21 @@ than the tiled walk, which tiles every activation K times.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from drsa_audio_tpu_torch.models.projection import insert_projection
 from drsa_audio_tpu_torch.models.vgg import LayerSpec, apply_layer, apply_layer_nhwc
+from drsa_audio_tpu_torch.utils.constants import (
+    AUDIO_PARAMS, CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY)
+from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
 from drsa_audio_tpu_torch.xai.lrp import chain
 from drsa_audio_tpu_torch.xai.lrp.engine import (
-    _RULE_LAYERS, Composite, LayerOp, _specialize_rule, output_mask_all_classes,
-    output_mask_class)
+    _RULE_LAYERS, Composite, LayerOp, _specialize_rule, _unmapped_backward, lrp,
+    output_mask_all_classes, output_mask_class)
 from drsa_audio_tpu_torch.xai.lrp.rules import (
     RULES, SHARED_RULES, _expand_batch, _mul_small)
 
@@ -59,39 +67,6 @@ def _conv_section(lower):
 def maxpool_route_mask(a: torch.Tensor, kernel: tuple) -> torch.Tensor:
     """First-argmax routing mask of a stride == kernel max-pool, NCHW."""
     return chain.route_mask(a, kernel, nhwc=False)
-
-
-def _vjp_of_forward(spec, params, a_in, R, nhwc: bool):
-    """The vjp of the layer's forward (apply_layer, or apply_layer_nhwc on
-    the NHWC walk) at a_in, applied to R, as the JAX package takes it for
-    every layer without a rule. Autograd runs outside inference mode, on
-    copies of the inputs, so that a caller in inference mode may call it."""
-    apply = apply_layer_nhwc if nhwc else apply_layer
-    with torch.inference_mode(False):
-        _, vjp = torch.func.vjp(lambda t: apply(spec, params, t), a_in.clone())
-        (out,) = vjp(R.clone())
-    return out
-
-
-def _unmapped_backward(spec, params, a_in, R, nhwc: bool):
-    """Relevance through a layer without a rule: the vjp of its forward.
-    relu and maxpool are written out, so that they keep JAX's tie semantics
-    (gate 0.5 at 0, where torch's relu backward gives 0; the first argmax of
-    a window); conv, linear, flatten and the identities are written out
-    because they are exact and cheap. Every other kind (projection,
-    invprojection, batchnorm, batchnorm1d) takes _vjp_of_forward."""
-    if spec.kind in ("conv", "linear"):
-        return LayerOp(spec, params, nhwc).vjp(R, a_in)
-    if spec.kind == "relu":
-        return R * chain.relu_gate(a_in)
-    if spec.kind == "maxpool":
-        k = spec.config["kernel"]
-        return chain.pool_backward(R, chain.route_mask(a_in, k, nhwc), k, nhwc)
-    if spec.kind == "flatten":
-        return R.reshape(a_in.shape)
-    if spec.kind in ("dropout", "subspacefilter"):
-        return R
-    return _vjp_of_forward(spec, params, a_in, R, nhwc)
 
 
 def _lrp_segment_backward(specs, params, acts, R, composite, nhwc: bool = False):
@@ -300,6 +275,25 @@ def subspace_heatmaps(specs_proj: Sequence[LayerSpec], params: dict,
     return heat, logits
 
 
+def subspace_heatmaps_repeated(specs_proj: Sequence[LayerSpec], params: dict,
+                               x: torch.Tensor, composite: Composite, num_concepts: int,
+                               class_idx: int | None = None,
+                               num_classes: int | None = None,
+                               one_hot_encoded: bool = False):
+    """The reference's scheme: each clip repeated K+1 times, one LRP pass
+    with the subspace mask at the filter (clone 0 keeps everything, clone k
+    concept k). Returns heatmaps [b, K+1, h, w] and the logits of the
+    repeated batch."""
+    k1 = num_concepts + 1
+    if class_idx is not None:
+        out_fn = output_mask_class(class_idx, one_hot_encoded)
+    else:
+        out_fn = output_mask_all_classes(num_classes, one_hot_encoded)
+    R, logits, _ = lrp(specs_proj, params, x.repeat_interleave(k1, dim=0), composite,
+                       out_fn)
+    return R.reshape(-1, k1, *x.shape[1:])[:, :, 0], logits
+
+
 def sort_subspaces(subspace_heatmaps: np.ndarray):
     """Sort each instance's subspace heatmaps by descending total relevance
     (reference explainer.py:151-176). Returns (heatmaps, relevances, order)."""
@@ -308,3 +302,109 @@ def sort_subspaces(subspace_heatmaps: np.ndarray):
     b = subspace_heatmaps.shape[0]
     return (subspace_heatmaps[np.arange(b)[:, None], order],
             rel[np.arange(b)[:, None], order], order)
+
+
+@dataclasses.dataclass
+class HeatmapGenerator:
+    """The reference HeatmapGenerator (explainer.py:15-176) on the fast
+    path. After ``generate_subspace_heatmaps`` the ``info`` dict holds input,
+    standard_heatmaps, standard_relevance, subspace_heatmaps,
+    subspace_relevances and mask, as numpy arrays.
+
+    ``case`` defaults from the class name (a name ending in 1 or 2 is the
+    toy's); it sets the class mapper and the mel size the inverse
+    projection restores. ``device`` defaults to CUDA and raises where there
+    is none; the parameters and U are moved there once."""
+    specs: Sequence[LayerSpec]
+    params: dict
+    U: object
+    name_map: list
+    sample_class: str
+    num_concepts: int = 4
+    layer_idx: int = 10
+    case: str | None = None
+    device: object = None
+
+    def __post_init__(self):
+        case = self.case
+        if case is None:
+            case = "toy" if self.sample_class.endswith(("1", "2")) else "gtzan"
+        mapper = CLASS_IDX_MAPPER_TOY if case == "toy" else CLASS_IDX_MAPPER
+        self.class_idx = mapper[self.sample_class]
+        self.num_classes = len(mapper)
+        self.device = resolve_device(self.device, "HeatmapGenerator")
+        self.params = params_on(self.params, self.device)
+        ap = AUDIO_PARAMS[case]
+        self._input_size = (ap["n_mels"], ap["mel_width"])
+        U = torch.as_tensor(self.U, dtype=torch.float32, device=self.device)
+        self.specs_proj = insert_projection(self.specs, self.layer_idx, U,
+                                            self.num_concepts, input_size=self._input_size)
+        self.composite = class_composite(self.name_map, self.num_concepts)
+        self.info: dict = {}
+
+    def _heatmaps(self, x: torch.Tensor, one_hot_encoded, flip_all_classes,
+                  shared_denominators, clone_chunk) -> np.ndarray:
+        with torch.inference_mode():
+            if flip_all_classes:
+                kw = {"num_classes": self.num_classes, "one_hot_encoded": one_hot_encoded}
+            else:
+                onehot = torch.zeros(self.num_classes, device=self.device)
+                onehot[self.class_idx] = 1.0
+                kw = {"output_mask": (lambda lg: onehot.expand_as(lg)) if one_hot_encoded
+                      else (lambda lg: lg * onehot)}
+            heat, _ = subspace_heatmaps(self.specs_proj, self.params, x, self.composite,
+                                        self.num_concepts, shared_denominators=shared_denominators,
+                                        clone_chunk=clone_chunk, **kw)
+            return heat.cpu().numpy()
+
+    def generate_subspace_heatmaps(self, input_batch, one_hot_encoded: bool = False,
+                                   concept_flipping: bool = False,
+                                   flip_all_classes: bool = False,
+                                   attr_batch_size: int | None = None,
+                                   shared_denominators: bool = False,
+                                   clone_chunk: int | None = None):
+        """Sorted subspace heatmaps [b, K, h, w]; with ``concept_flipping``
+        the raw (unsorted) ones, and ``info`` is left as it was.
+        ``flip_all_classes`` attributes a balanced consecutive-class batch.
+        ``attr_batch_size`` runs the attribution that many clips at a time
+        (bounds device memory); it cannot be combined with
+        ``flip_all_classes``, whose output mask depends on a clip's position
+        in the whole batch."""
+        x = torch.as_tensor(input_batch, dtype=torch.float32, device=self.device)
+        self.info["input"] = x.cpu().numpy()
+        args = (one_hot_encoded, flip_all_classes, shared_denominators, clone_chunk)
+        if attr_batch_size and x.shape[0] > attr_batch_size:
+            if flip_all_classes:
+                raise ValueError("attr_batch_size cannot be combined with "
+                                 "flip_all_classes (batch-position-dependent mask)")
+            heat = np.concatenate([self._heatmaps(x[i:i + attr_batch_size], *args)
+                                   for i in range(0, x.shape[0], attr_batch_size)])
+        else:
+            heat = self._heatmaps(x, *args)                  # [b, K+1, h, w]
+        if concept_flipping:
+            return heat[:, 1:]
+        standard = heat[:, 0:1]
+        sub, sub_rel, mask = sort_subspaces(heat[:, 1:])
+        self.info["standard_heatmaps"] = standard
+        self.info["standard_relevance"] = standard.sum(axis=(-2, -1)).flatten()
+        self.info["subspace_heatmaps"] = sub
+        self.info["subspace_relevances"] = sub_rel
+        self.info["mask"] = mask
+        return sub
+
+
+def compute_subspace_relevances(act_vecs, ctx_vecs, U, n_concepts: int = 4,
+                                device=None) -> torch.Tensor:
+    """Per-concept relevance sum((aU) * (cU)) over positions and each
+    concept's block, without heatmaps (reference explainer.py:206-242).
+    act_vecs, ctx_vecs: [batch, N, d] (or [N, d]). Returns [batch, K] on
+    ``device``, which defaults to CUDA and raises where there is none."""
+    device = resolve_device(device, "compute_subspace_relevances")
+    a, c, U = (torch.as_tensor(v, dtype=torch.float32, device=device)
+               for v in (act_vecs, ctx_vecs, U))
+    if a.ndim == 2:
+        a = a[None]
+    if c.ndim == 2:
+        c = c[None]
+    x = (a @ U) * (c @ U)
+    return x.reshape(*x.shape[:2], n_concepts, -1).sum(dim=(-1, 1))

@@ -1,4 +1,11 @@
-"""LRP engine pieces (the port of drsa_audio_tpu.xai.lrp.engine).
+"""LRP engine (the port of drsa_audio_tpu.xai.lrp.engine).
+
+``lrp`` is the function interpreter: the forward records every layer's
+input, the backward walks the layer list in reverse and applies each mapped
+layer's rule; a layer without a rule takes the vjp of its forward at the
+recorded input (``_unmapped_backward``). ``capture`` returns the (output
+activation, output relevance) pair of named layers, the DRSA extraction's
+hook.
 
 ``LayerOp`` is the port's apply factory: the forward of a linear layer with
 its parameters transformed by ``w_mod``/``b_mod``, the transpose of its
@@ -9,6 +16,7 @@ Rules in xai.lrp.rules are written against it.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +24,9 @@ import torch.nn.functional as F
 from drsa_audio_tpu_torch.models.projection import (
     apply_inv_projection, apply_projection, inv_projection_vjp, projection_vjp)
 from drsa_audio_tpu_torch.models.vgg import (
-    LayerSpec, conv2d_same, conv2d_same_nhwc, linear_apply)
+    LayerSpec, apply_layer, apply_layer_nhwc, conv2d_same, conv2d_same_nhwc, linear_apply)
+from drsa_audio_tpu_torch.xai.lrp import chain
+from drsa_audio_tpu_torch.xai.lrp.rules import RULES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +43,23 @@ class Composite:
     @classmethod
     def from_list(cls, name_map) -> "Composite":
         return cls(tuple((n, (r, dict(kw))) for n, (r, kw) in name_map))
+
+
+def layer_map_composite(specs: Sequence[LayerSpec], conv_rule, dense_rule,
+                        first_layer_rule=None) -> Composite:
+    """SpecialFirstLayerMapComposite equivalent (reference pf.py:230-238):
+    ``conv_rule`` on every conv, ``dense_rule`` on every linear, and
+    ``first_layer_rule``, if given, on the first conv."""
+    name_map = []
+    first_conv = True
+    for spec in specs:
+        if spec.kind == "conv":
+            use_first = first_conv and first_layer_rule is not None
+            name_map.append((spec.name, first_layer_rule if use_first else conv_rule))
+            first_conv = False
+        elif spec.kind == "linear":
+            name_map.append((spec.name, dense_rule))
+    return Composite.from_list(name_map)
 
 
 def _identity(p):
@@ -136,6 +163,83 @@ def _specialize_rule(rule_name: str, specs, i: int) -> str:
     return rule_name
 
 
+def _vjp_of_forward(spec, params, a_in, R, nhwc: bool):
+    """The vjp of the layer's forward (apply_layer, or apply_layer_nhwc on
+    the NHWC walk) at a_in, applied to R, as the JAX package takes it for
+    every layer without a rule. Autograd runs outside inference mode, on
+    copies of the inputs, so that a caller in inference mode may call it."""
+    apply = apply_layer_nhwc if nhwc else apply_layer
+    with torch.inference_mode(False):
+        _, vjp = torch.func.vjp(lambda t: apply(spec, params, t), a_in.clone())
+        (out,) = vjp(R.clone())
+    return out
+
+
+def _unmapped_backward(spec, params, a_in, R, nhwc: bool):
+    """Relevance through a layer without a rule: the vjp of its forward.
+    relu and maxpool are written out, so that they keep JAX's tie semantics
+    (gate 0.5 at 0, where torch's relu backward gives 0; the first argmax of
+    a window); conv, linear, flatten and the identities are written out
+    because they are exact and cheap. Every other kind (projection,
+    invprojection, batchnorm, batchnorm1d) takes _vjp_of_forward."""
+    if spec.kind in ("conv", "linear"):
+        return LayerOp(spec, params, nhwc).vjp(R, a_in)
+    if spec.kind == "relu":
+        return R * chain.relu_gate(a_in)
+    if spec.kind == "maxpool":
+        k = spec.config["kernel"]
+        return chain.pool_backward(R, chain.route_mask(a_in, k, nhwc), k, nhwc)
+    if spec.kind == "flatten":
+        return R.reshape(a_in.shape)
+    if spec.kind in ("dropout", "subspacefilter"):
+        return R
+    return _vjp_of_forward(spec, params, a_in, R, nhwc)
+
+
+def lrp(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor,
+        composite: Composite, output_relevance: Callable[[torch.Tensor], torch.Tensor],
+        capture: Sequence[str] = (), stop_after_capture: bool = False):
+    """LRP over the whole layer list, NCHW: a forward recording every
+    layer's input, then the rule (or, unmapped, the vjp) of each layer in
+    reverse. Runs on the device of ``x`` and ``params``.
+
+    ``output_relevance`` maps the logits to the initial relevance.
+    ``capture`` names layers whose (output activation, output relevance)
+    are returned; with ``stop_after_capture`` the walk ends once every one
+    of them is recorded, and the relevance returned is then the one at the
+    lowest captured layer's output, not at the input.
+
+    Returns (input relevance, logits, {name: (activation, relevance)})."""
+    acts = []
+    h = x
+    for spec in specs:
+        acts.append(h)
+        h = apply_layer(spec, params, h)
+    logits = h
+    R = output_relevance(logits)
+    captured: dict[str, tuple] = {}
+    capture = set(capture)
+    for i in range(len(specs) - 1, -1, -1):
+        spec = specs[i]
+        a_in = acts[i]
+        if spec.name in capture:
+            # the relevance at this layer's output is the R arriving now
+            captured[spec.name] = (acts[i + 1] if i + 1 < len(acts) else logits, R)
+            if stop_after_capture and len(captured) == len(capture):
+                return R, logits, captured
+        rule = composite.rule_for(spec.name)
+        if rule is not None and spec.kind in _RULE_LAYERS:
+            rule_name, kwargs = rule
+            if spec.kind == "subspacefilter":
+                R = RULES["subspace_mask"](None, a_in, R, **kwargs)
+            else:
+                R = RULES[_specialize_rule(rule_name, specs, i)](
+                    LayerOp(spec, params), a_in, R, **kwargs)
+        else:
+            R = _unmapped_backward(spec, params, a_in, R, nhwc=False)
+    return R, logits, captured
+
+
 def output_mask_class(class_idx: int, one_hot: bool = False):
     """Attribute one class: R_out = logit (or 1.0 if one_hot) at class_idx."""
     def fn(logits):
@@ -154,3 +258,19 @@ def output_mask_all_classes(num_classes: int, one_hot: bool = False):
         mask = eye.repeat_interleave(per, dim=0)
         return mask if one_hot else logits * mask
     return fn
+
+
+def compute_relevances(specs, params, x: torch.Tensor, composite: Composite,
+                       class_idx: int | None = None, num_classes: int | None = None,
+                       one_hot_encoded: bool = False) -> torch.Tensor:
+    """Input relevance maps, the shape of ``x`` (reference
+    attribute.compute_relevances, attribute.py:70-108): one class for the
+    batch, or with ``num_classes`` a balanced consecutive-class batch."""
+    if class_idx is not None:
+        out_fn = output_mask_class(class_idx, one_hot_encoded)
+    elif num_classes is not None:
+        out_fn = output_mask_all_classes(num_classes, one_hot_encoded)
+    else:
+        raise ValueError("provide class_idx or num_classes")
+    R, _, _ = lrp(specs, params, x, composite, out_fn)
+    return R

@@ -599,3 +599,75 @@ def test_logmel_kernel_loud_beside_silent(cuda, case):
     wav[2] *= 1e-3 / np.abs(wav[2]).max()
     got = _logmel_close(torch.as_tensor(wav, device=cuda), cfg)
     assert bool((got[1] == -4.0).all()) and got[0].max().item() > 4.0
+
+
+def test_heatmap_generator_on_card_launches_the_chain_and_matches_plain(cuda):
+    """HeatmapGenerator on the 3s model at full width, 6 mel clips in
+    chunks of 4: chain_block 3 times and first_layer once per chunk, and
+    the heatmaps against the plain tiled walk on the same chunks; the
+    shared-denominator call launches gamma_nonneg 3 times per chunk and no
+    chain kernel."""
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai import explain
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    gen = explain.HeatmapGenerator(specs=specs, params=vgg.init_params(specs, 0, device="cuda"),
+                                   U=random_orthogonal(5, 64), name_map=LRP_NAME_MAP_GTZAN,
+                                   sample_class="blues")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((6, 1, 128, 128))
+                        .astype(np.float32), device=cuda)
+    chain.reset_launches()
+    fused_gamma.reset_launches()
+    raw = gen.generate_subspace_heatmaps(x, concept_flipping=True, attr_batch_size=4)
+    assert chain.LAUNCHES == {"chain_block": 6, "first_layer": 2, "first_block_deep": 0,
+                              "merged_tail": 0}
+    onehot = torch.zeros(10, device=cuda)
+    onehot[gen.class_idx] = 1.0
+    with torch.inference_mode():
+        want = torch.cat([explain.subspace_heatmaps(
+            gen.specs_proj, gen.params, x[i:i + 4], gen.composite, 4,
+            output_mask=lambda lg: lg * onehot, fused=False)[0] for i in (0, 4)])
+    _close(torch.as_tensor(raw, device=cuda), want[:, 1:])
+    chain.reset_launches()
+    sub = gen.generate_subspace_heatmaps(x[:4], shared_denominators=True)
+    assert fused_gamma.LAUNCHES["gamma_nonneg"] == 3 and sum(chain.LAUNCHES.values()) == 0
+    assert np.isfinite(sub).all()
+    np.testing.assert_allclose(gen.info["standard_heatmaps"][:, 0], sub.sum(axis=1), rtol=1e-5,
+                               atol=1e-6 * np.abs(sub).max())
+
+
+@pytest.mark.parametrize("method", ["ns", "eigh"])
+def test_drsa_fit_on_card_matches_cpu(cuda, method):
+    """30 steps from the same U0 on the card and on the CPU (d 64, K 4, 3
+    runs, 2,000 vectors): the objectives at rtol 2e-2 (the JAX package's
+    trajectory bound), every U orthogonal."""
+    from drsa_audio_tpu_torch.xai.drsa import optimizer, preprocessing
+    rng = np.random.default_rng(4)
+    A, C = (preprocessing.normalize_vectors(torch.as_tensor(
+        rng.standard_normal((2000, 64)).astype(np.float32))) for _ in range(2))
+    U0 = optimizer.init_runs(0, 64, 3)
+    got = optimizer.drsa_fit(U0, A.to(cuda), C.to(cuda), 4, 30, method)
+    want = optimizer.drsa_fit(U0, A, C, 4, 30, method, device="cpu")
+    assert got.U.device.type == "cuda"
+    np.testing.assert_allclose(got.objectives.cpu().numpy(), want.objectives.numpy(), rtol=2e-2)
+    eye = torch.eye(64, device=cuda)
+    assert (got.U.transpose(-2, -1) @ got.U - eye).abs().max().item() <= 1e-4
+
+
+def test_preprocess_data_on_card_matches_cpu(cuda):
+    """The captured maps of the 3s model at layer 10 on the card against the
+    CPU, through preprocess_data's inference mode (vectors of every
+    position): activations, and relevances as R = c * (a + 1e-7)."""
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.drsa.preprocessing import preprocess_data
+    from drsa_audio_tpu_torch.xai.lrp.engine import Composite
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    params = vgg.init_params(specs, 0, device="cpu")
+    comp = Composite.from_list(LRP_NAME_MAP_GTZAN)
+    x = np.random.default_rng(5).standard_normal((4, 1, 128, 128)).astype(np.float32)
+    a, c = preprocess_data(specs, params, x, comp, 10, 2, attr_batch_size=2)
+    a0, c0 = preprocess_data(specs, params, x, comp, 10, 2, attr_batch_size=2, device="cpu")
+    assert a.device.type == "cuda" and a.shape == (4, 16 * 16, 64)
+    _close(a, a0.to(cuda))
+    _close(c * (a + 1e-7), (c0 * (a0 + 1e-7)).to(cuda))

@@ -21,7 +21,8 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     mods = _port_modules()
-    for m in ("xai.lrp.chain", "xai.lrp.fused_gamma", "ops.fused_frontend"):
+    for m in ("xai.lrp.chain", "xai.lrp.fused_gamma", "ops.fused_frontend",
+              "xai.drsa.preprocessing", "xai.drsa.prototypes", "utils.evaluation"):
         assert "drsa_audio_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

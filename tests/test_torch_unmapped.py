@@ -25,6 +25,7 @@ from drsa_audio_tpu_torch.models import vgg as tvgg
 from drsa_audio_tpu_torch.models.projection import insert_projection as t_insert
 from drsa_audio_tpu_torch.utils.convert import from_jax_params
 from drsa_audio_tpu_torch.xai import explain as texp
+from drsa_audio_tpu_torch.xai.lrp import engine as tengine
 from test_torch_util import (
     POOL_MARGIN, assert_close_lrp, both_models, random_bn, signed_permutation, t,
     tie_margins, to_np)
@@ -84,14 +85,15 @@ def _heatmaps(case, comps, walk):
 
 
 def _fallback_calls(monkeypatch):
-    """Count the calls of the port's vjp fallback."""
+    """Count the calls of the port's vjp fallback (it lives in the engine,
+    beside the interpreter that also takes it)."""
     calls = []
-    vjp = texp._vjp_of_forward
+    vjp = tengine._vjp_of_forward
 
     def counted(spec, *args):
         calls.append(spec.kind)
         return vjp(spec, *args)
-    monkeypatch.setattr(texp, "_vjp_of_forward", counted)
+    monkeypatch.setattr(tengine, "_vjp_of_forward", counted)
     return calls
 
 
