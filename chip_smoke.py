@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the six CUDA kernels
-   (csrc/*.cu, one nvcc each, in parallel), and counts the HMMA
+   (csrc/*.cu, one nvcc each, in parallel) and beside them the native
+   runtime (csrc/audio_runtime.cpp with g++: WAV decode, Telea), and counts
+   the HMMA
    (tensor-core) instructions in the SASS of chain_block, first_block_deep,
    merged_tail and gamma_nonneg (cuobjdump): it fails where there are none.
 2. Serves three requests of 32 clips, one class each, through
@@ -15,7 +17,8 @@
    the subspace maps, and one request must agree with the plain path
    (fused=False).
 3. Holds the card against the CPU path on four clips: the log-mel, then the
-   heatmaps and logits computed from the same mels.
+   heatmaps and logits computed from the same mels. Each CPU reference is
+   computed until two runs give the same bits (host_reference).
 4. Records the inputs of the four kernel launches of one 256-clip request,
    holds each kernel against its plain PyTorch version on them (TF32 off),
    and times both with CUDA events beside the kernel's lower bound. Each
@@ -90,6 +93,28 @@
    (chain_block 4, first_block_deep 1). Times: extraction per 64-clip
    chunk, fit wall time and ms per step, the generator per chunk with its
    peak memory.
+12. Evaluate and sonify, with phase 11's loaded 3s layer-10 Us. Files: 256
+   seeded 3 s 16 kHz WAVs, two at 22,050 Hz and one of 0.5 s, written with
+   the port's write_wav; the native decode of each equal to read_wav;
+   explain_files (batches of 64, 4 decode threads, prefetch depth 2; the
+   counted run) timed beside explain on the same batches in memory, and, with
+   cuDNN held to deterministic algorithms, bit-equal to explain on the
+   waveforms decoded, resampled and padded here. Concept flipping of 10
+   classes x 20 seeded noise clips at perturbation 16 (6 steps, 1,200
+   forwards in chunks of 512, attribution in chunks of 32; chain_block 30,
+   first_layer 10), finite AUPC, and Flipper on 20 of them on the card
+   against the CPU given the same maps (clips whose keep masks differ
+   between the devices left out, at least half must agree). Standard LRP:
+   PixelFlipping, scaled gamma 0.4 / epsilon / wsquare (no kernel), one
+   inpainting Flipper on 20 clips. interclass_concept_flipping at layer 10
+   with samples (chain_block 300, first_layer 100), interclass_gap_ci,
+   paired_diff_ci of DRSA against standard, cf_random_subspace (d 64, 3
+   permutations; chain_block 90, first_layer 30), sep_and_peak_table and
+   cancellation_factor of the DRSA and random maps. Mel2Audio('gtzan')
+   make_audios and transform_mel of 2 clips, card against CPU. Toy: 2
+   classes x 16 clips of generate_batch through concept flipping
+   (chain_block 6, first_layer 2), band_assignment and Mel2AudioToy. Each
+   step's ms on a line of its own.
 
 The kernels line gives, for each kernel, its numbers per path under
 "paths" (3s, 3s_merged and 3s_shared at batch 256, 6s at batch 64,
@@ -97,7 +122,8 @@ The kernels line gives, for each kernel, its numbers per path under
 frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
 batches of 10) and at its top level their sums over the paths (launches:
 the counts of the served requests of 2, 5m, 6 and 9, the calls of 10 and
-the counted runs of 11, the last also apart under fit_then_serve_launches;
+the counted runs of 11 and 12, also apart under fit_then_serve_launches
+and evaluate_launches;
 max_abs_err: the largest). The log-mel row also carries the matmul-DFT
 logmel's time, and as library_ms the port's logmel(use_matmul_dft=False)
 (cuFFT through torch.fft.rfft), which the port never calls on a path.
@@ -118,6 +144,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -464,6 +491,48 @@ def counted(name: str, run, counts: dict):
     if got != want:
         raise AssertionError(f"{name}: launch counts {got}, expected {want}")
     return out, got
+
+
+def host_reference(name: str, run):
+    """A CPU reference, trusted once two runs of it agree bit for bit. The
+    CPU path is deterministic (the same bits at any thread count), so runs
+    that differ mean the host miscomputed. On one H100 host the first CPU
+    log-mel of a run came back with one MKL thread's 67-row block of the
+    DFT matmul at about 11-bit precision, and the next run was right. Runs
+    ``run`` (tensors, or a tuple of them) twice, and a third time if they
+    differ; returns (the result two runs agree on, the runs taken). Raises
+    if no two agree."""
+    import torch
+
+    def same(a, b):
+        a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    runs = [run(), run()]
+    if same(*runs):
+        return runs[0], 2
+    runs.append(run())
+    for i, j in ((0, 2), (1, 2)):
+        if same(runs[i], runs[j]):
+            return runs[i], 3
+    raise AssertionError(f"{name}: three CPU runs of the reference all differ")
+
+
+def logmel_f64(wav, cfg):
+    """The port's log-mel of ``wav`` [b, time] on the CPU with every step in
+    float64 (its float32 DFT basis and filterbank widened): the yardstick
+    that tells which device moved when the card and the CPU disagree."""
+    import torch
+    from drsa_audio_tpu_torch.ops.frontend import peak_normalize
+    from drsa_audio_tpu_torch.ops.mel import mel_filterbank
+    from drsa_audio_tpu_torch.ops.stft import _frame_signal, dft_basis, hann_window
+    frames = _frame_signal(peak_normalize(wav.double()), cfg.n_fft, cfg.hop_length)
+    frames = frames * hann_window(cfg.n_fft, torch.float64)
+    re, im = (frames @ torch.as_tensor(m, dtype=torch.float64) for m in dft_basis(cfg.n_fft))
+    fb = torch.as_tensor(mel_filterbank(cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate),
+                         dtype=torch.float64)
+    mel = (torch.sqrt(re * re + im * im) @ fb).transpose(-1, -2)
+    return torch.clamp(torch.log10(mel + 1e-7), min=-4.0)[..., 1:cfg.width + 1]
 
 
 def check_heatmaps(name: str, std: np.ndarray, sub: np.ndarray, shape) -> None:
@@ -907,9 +976,10 @@ def generator_checks(gen, x, attr_batch_size, counts, name) -> tuple:
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, got)
 
 
-def fit_then_serve_3s(card: str) -> dict:
+def fit_then_serve_3s(card: str) -> tuple:
     """Phase 11, GTZAN-3s: extract, fit, save and load, serve. Returns the
-    launch counts of its counted runs."""
+    launch counts of its counted runs, and (specs, params, the loaded Us)
+    for phase 12."""
     import tempfile
 
     import torch
@@ -1035,7 +1105,7 @@ def fit_then_serve_3s(card: str) -> dict:
     emit({"phase": "fit_then_serve_3s_prototypes", "card": card, "clips": 100, "n": 10,
           "subset_index": proto.subset_index, "objectives": proto.objectives.tolist(),
           "ms": proto_ms, "shared_generator_launches": launches["generator_shared"]})
-    return {k: sum(c[k] for c in launches.values()) for k in SOURCES}
+    return {k: sum(c[k] for c in launches.values()) for k in SOURCES}, (specs, params, Us)
 
 
 def fit_then_serve_6s(card: str) -> dict:
@@ -1087,6 +1157,265 @@ def fit_then_serve_6s(card: str) -> dict:
     return counts
 
 
+N_EVAL, B_FILES, B_FILE_BATCH, FORWARD_BATCH = 20, 256, 64, 512
+STANDARD_GRID = [{"convolutional": ("gamma", 0.4), "dense": ("epsilon", 1e-7),
+                  "first_layer": ("wsquare",)}]
+
+
+def timed(name: str, run, **beside):
+    """``run()`` on the host clock, the device synchronised before and
+    after; emits the step's ms on a line of its own and returns what
+    ``run`` returned."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    emit({"phase": "evaluate_3s_step", "step": name, "ms": (time.perf_counter() - t0) * 1e3,
+          **beside})
+    return out
+
+
+def write_eval_files(tmp: str, rng) -> list:
+    """256 seeded 3 s, 16 kHz clips, two 3 s clips at 22,050 Hz and one of
+    0.5 s at 16 kHz, as 16-bit WAV files; the three odd ones first, so that
+    they fall in the first batch."""
+    from drsa_audio_tpu_torch.runtime.wavio import write_wav
+    specs = [(22050, 3.0), (16000, 0.5), (22050, 3.0)] + [(16000, 3.0)] * B_FILES
+    paths = []
+    for i, (sr, seconds) in enumerate(specs):
+        paths.append(os.path.join(tmp, f"{i:04d}_{sr}.wav"))
+        write_wav(paths[-1], np.clip(rng.standard_normal(int(sr * seconds)) * 0.3, -1, 1), sr)
+    return paths
+
+
+def prepared_waveform(path: str, window: int = 48000, rate: int = 16000) -> np.ndarray:
+    """What explain_files should feed for ``path``, made here from the
+    numpy reader: the first channel resampled to ``rate``, padded or cut
+    to ``window``."""
+    import math
+
+    from scipy.signal import resample_poly
+
+    from drsa_audio_tpu_torch.runtime.wavio import read_wav
+    wav, sr = read_wav(path)
+    w = wav[0]
+    if sr != rate:
+        g = math.gcd(sr, rate)
+        w = resample_poly(w, rate // g, sr // g).astype(np.float32)
+    return np.pad(w, (0, max(0, window - len(w))))[:window]
+
+
+def keep_masks(R, device):
+    """Flipper's keep masks [steps, b, P] of maps R [b, K, h, w] at
+    perturbation 16, computed on ``device``."""
+    import torch
+    from drsa_audio_tpu_torch.xai.eval import flipping
+    R = torch.as_tensor(R, device=device)
+    gh, gw = R.shape[-2] // 16, R.shape[-1] // 16
+    return flipping._cumulative_masks(flipping.rank_patches(R, 16),
+                                      flipping.quadratic_schedule(gh * gw)).cpu()
+
+
+def flipper_card_vs_cpu(specs, params, x, R, name: str) -> dict:
+    """Flipper's per-instance scores on the card against the CPU, given the
+    same maps R: the two sum a patch in another order, so the clips whose
+    keep masks differ between the devices (a patch-sum near-tie) are left
+    out, and at least half must agree; the rest at rtol 1e-4, atol 1e-5 *
+    max|preds|."""
+    from drsa_audio_tpu_torch.models.vgg import forward
+    from drsa_audio_tpu_torch.utils.device import params_on
+    from drsa_audio_tpu_torch.xai.eval.flipping import Flipper
+    p_cpu = params_on(params, "cpu")
+    got, _, _ = Flipper(16, forward_batch=FORWARD_BATCH).predictions(
+        lambda t: forward(specs, params, t), x, R)
+    want, _, _ = Flipper(16, forward_batch=FORWARD_BATCH, device="cpu").predictions(
+        lambda t: forward(specs, p_cpu, t), x.cpu(), R)
+    agree = (keep_masks(R[:, :, 0], "cuda") == keep_masks(R[:, :, 0], "cpu")).all(dim=0).all(
+        dim=-1).numpy()
+    if agree.sum() < len(agree) / 2:
+        raise AssertionError(f"{name}: keep masks differ between card and CPU on "
+                             f"{int((~agree).sum())} of {len(agree)} clips")
+    import torch
+    err = check_close(name, torch.as_tensor(got[:, agree]), torch.as_tensor(want[:, agree]),
+                      atol=1e-5 * np.abs(want).max())
+    return {"clips": len(agree), "masks_agree": int(agree.sum()), "max_abs_err": err,
+            "max_abs_preds": float(np.abs(want).max())}
+
+
+def evaluate_3s(card: str, specs, params, Us) -> dict:
+    """Phase 12: evaluate and sonify the concepts fitted in phase 11 (the
+    loaded layer-10 Us), and the toy model's. Returns the launch counts of
+    its counted runs."""
+    import tempfile
+
+    import torch
+    from drsa_audio_tpu_torch.data.toydata import generate_batch
+    from drsa_audio_tpu_torch.models.vgg import build_layer_specs, init_params, toy_config
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+    from drsa_audio_tpu_torch.runtime.loader import load_audio
+    from drsa_audio_tpu_torch.runtime.wavio import read_wav
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN, LRP_NAME_MAP_TOY
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    from drsa_audio_tpu_torch.xai.eval import concept_recovery, harness, metrics, stats
+    from drsa_audio_tpu_torch.xai.eval.flipping import Flipper
+    from drsa_audio_tpu_torch.xai.sonify.mel2audio import Mel2Audio, Mel2AudioToy
+
+    launches = {}
+    cls = next(iter(Us))
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN, Us, K, 10, case="gtzan")
+    chain_counts = {"chain_block": 3, "first_layer": 1}
+
+    # ------------------------------------------------ files through the service
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = timed("write_files", lambda: write_eval_files(tmp, np.random.default_rng(12)),
+                      files=B_FILES + 3)
+        for p in paths:
+            (got, sr), (want, sr0) = load_audio(p), read_wav(p)
+            if sr != sr0 or not np.array_equal(got, want):
+                raise AssertionError(f"{p}: the native decode differs from read_wav")
+        wavs = [prepared_waveform(p) for p in paths]
+        batches = [np.stack(wavs[i:i + B_FILE_BATCH]) for i in range(0, len(wavs), B_FILE_BATCH)]
+        svc.explain(batches[0], cls)                                    # warm
+        run = lambda: list(svc.explain_files(paths, cls, batch_size=B_FILE_BATCH,  # noqa: E731
+                                             decode_threads=4, prefetch_depth=2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, launches["explain_files"] = counted(
+            "evaluate_3s explain_files", run,
+            {k: n * len(batches) for k, n in chain_counts.items()})
+        files_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            svc.explain(b, cls)
+        memory_s = time.perf_counter() - t0
+        # the same bits as explain on the same prepared waveforms, cuDNN held
+        # to deterministic algorithms for both runs
+        deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+        try:
+            outs = run()
+            refs = [svc.explain(b, cls) for b in batches]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+    if [o["logits"].shape[0] for o in outs] != [len(b) for b in batches]:
+        raise AssertionError(f"explain_files: batches {[o['logits'].shape for o in outs]}")
+    for o, r in zip(outs, refs):
+        for key in ("standard_heatmaps", "subspace_heatmaps", "subspace_relevances", "mask",
+                    "logits"):
+            if not np.array_equal(o[key], r[key]):
+                raise AssertionError(f"explain_files differs from explain in {key}")
+        check_heatmaps("explain_files", o["standard_heatmaps"], o["subspace_heatmaps"],
+                       (len(o["logits"]), 128, 128))
+    emit({"phase": "evaluate_3s_files", "card": card, "files": len(paths),
+          "batch_size": B_FILE_BATCH, "decode_threads": 4, "prefetch_depth": 2,
+          "files_per_sec": len(paths) / files_s, "explain_files_ms": files_s * 1e3,
+          "in_memory_explain_ms": memory_s * 1e3, "launches": launches["explain_files"],
+          "equal_to_explain": True, "native_decode_equal_to_read_wav": True})
+
+    # ------------------------------------------------ concept flipping (DRSA)
+    cfg = FrontendConfig.for_case("gtzan")
+    x = seeded_mels(3000, 10 * N_EVAL, cfg)
+    (aupc, _, _, R), launches["concept_flipping"] = counted(
+        "evaluate_3s concept flipping", lambda: timed("concept_flipping", lambda: (
+            harness.concept_flipping(specs, params, x, LRP_NAME_MAP_GTZAN, 10, Us, K, case="gtzan",
+                                     perturbation_size=16, forward_batch=FORWARD_BATCH,
+                                     attr_batch_size=32)), clips=len(x), forwards=6 * len(x)),
+        {k: 10 * n for k, n in chain_counts.items()})
+    if aupc.shape != (10, N_EVAL) or not np.isfinite(aupc).all():
+        raise AssertionError(f"concept flipping AUPC {aupc.shape} or not finite")
+    pick = np.array([c * N_EVAL + j for c in range(10) for j in (0, 1)])
+    vs_cpu = flipper_card_vs_cpu(specs, params, x[pick], R[pick][:, :, None],
+                                 "concept flipping Flipper card vs CPU")
+
+    # ------------------------------------------------ standard LRP
+    pf = harness.PixelFlipping(specs, params, x, perturbation_size=16, num_classes=10,
+                               forward_batch=FORWARD_BATCH, attr_batch_size=32)
+    (std_aupc, _, _, std_R), launches["pixel_flipping"] = counted(
+        "evaluate_3s pixel flipping", lambda: timed(
+            "pixel_flipping_scaled_gamma", lambda: pf(STANDARD_GRID, scaled_gamma=True)), {})
+    (name,) = std_aupc
+    std_aupc = std_aupc[name]
+    inpaint = timed("inpainting_flipper_20_clips", lambda: Flipper(
+        16, "inpainting", forward_batch=FORWARD_BATCH)(pf._fwd, x[pick], std_R[name][pick]))
+    if not (np.isfinite(std_aupc).all() and np.isfinite(inpaint[0]).all()):
+        raise AssertionError("standard LRP AUPC not finite")
+
+    # ------------------------------------------------ interclass and baseline
+    inter, launches["interclass"] = counted(
+        "evaluate_3s interclass", lambda: timed("interclass_concept_flipping", lambda: (
+            harness.interclass_concept_flipping(
+                specs, params, x, LRP_NAME_MAP_GTZAN, {10: Us}, layer_idcs=(10,), num_concepts=K,
+                case="gtzan", perturbation_size=16, forward_batch=FORWARD_BATCH,
+                attr_batch_size=32, return_samples=True))),
+        {k: 100 * n for k, n in chain_counts.items()})
+    if inter[0].shape != (10, 10, N_EVAL) or not np.isfinite(inter[0]).all():
+        raise AssertionError(f"interclass AUPC {inter[0].shape}")
+    gap = timed("interclass_gap_ci", lambda: stats.interclass_gap_ci(inter[0]))
+    diff = timed("paired_diff_ci", lambda: stats.paired_diff_ci(aupc, std_aupc))
+    rand_R, launches["random_subspace"] = counted(
+        "evaluate_3s random subspace", lambda: timed("cf_random_subspace", lambda: (
+            harness.cf_random_subspace(specs, params, x, LRP_NAME_MAP_GTZAN, 10, len(Us[cls]), K,
+                                       case="gtzan", permutations=3, seed=0,
+                                       attr_batch_size=32))),
+        {k: 30 * n for k, n in chain_counts.items()})
+    table = timed("sep_and_peak_table", lambda: metrics.sep_and_peak_table({4: [R, rand_R]}))
+    cancel = [metrics.cancellation_factor(m) for m in (R, rand_R)]
+    if not (np.isfinite(table).all() and np.isfinite(cancel).all()):
+        raise AssertionError("sep/peak or cancellation not finite")
+    emit({"phase": "evaluate_3s_flipping", "card": card, "clips": len(x), "steps": 6,
+          "aupc_drsa_mean": float(aupc.mean()), "aupc_standard_mean": float(std_aupc.mean()),
+          "aupc_inpainting_mean": float(inpaint[0].mean()),
+          "flipper_card_vs_cpu": vs_cpu, "drsa_minus_standard_ci95": diff,
+          "interclass_gap_ci95": gap, "sep_peak_drsa_random": table[0].T.tolist(),
+          "cancellation_drsa_random": cancel,
+          "launches": {k: launches[k] for k in ("concept_flipping", "pixel_flipping",
+                                                "interclass", "random_subspace")}})
+
+    # ------------------------------------------------ sonification
+    card_m, cpu_m = Mel2Audio("gtzan"), Mel2Audio("gtzan", device="cpu")
+    son = {}
+    for i in (3, 4):                                   # two 3 s, 16 kHz clips of the first batch
+        got = timed("make_audios", lambda: card_m.make_audios(outs[0], wavs[i], K, sample_idx=i),
+                    clip=i)
+        want = cpu_m.make_audios(outs[0], wavs[i], K, sample_idx=i)
+        son[f"make_audios_{i}"] = max(check_close(f"make_audios clip {i}", torch.as_tensor(g),
+                                                  torch.as_tensor(w))
+                                      for g, w in zip(got, want, strict=True))
+        mel, phase = cpu_m.transform_audio(wavs[i])
+        rt = timed("transform_mel", lambda: card_m.transform_mel(mel, phase).cpu(), clip=i)
+        son[f"transform_mel_{i}"] = check_close(f"transform_mel clip {i}", rt,
+                                                cpu_m.transform_mel(mel, phase))
+    emit({"phase": "evaluate_3s_sonify", "card": card, "max_abs_err_card_vs_cpu": son})
+
+    # ------------------------------------------------ toy
+    specs_t = build_layer_specs(toy_config())
+    params_t = init_params(specs_t, seed=0, device="cuda")
+    Us_t = {"class1": random_orthogonal(40, 16), "class2": random_orthogonal(41, 16)}
+    cfg_t = FrontendConfig.for_case("toy")
+    wav_t = np.concatenate([generate_batch(50 + i, c, 16) for i, c in enumerate(Us_t)])
+    with torch.inference_mode():
+        x_t = logmel(peak_normalize(torch.as_tensor(wav_t, device="cuda")), cfg_t)[:, None]
+    (aupc_t, _, _, R_t), launches["toy"] = counted(
+        "evaluate_toy concept flipping", lambda: timed("toy_concept_flipping", lambda: (
+            harness.concept_flipping(specs_t, params_t, x_t, LRP_NAME_MAP_TOY, 10, Us_t, K,
+                                     case="toy", perturbation_size=16, attr_batch_size=32))),
+        {k: 2 * n for k, n in chain_counts.items()})
+    shares = [concept_recovery.band_assignment(R_t[16 * i:16 * (i + 1)], c)
+              for i, c in enumerate(Us_t)]
+    toy_audio = Mel2AudioToy().make_audios(
+        {"standard_heatmaps": R_t[:1].sum(axis=1, keepdims=True), "subspace_heatmaps": R_t[:1]},
+        wav_t[0], K)
+    if not (np.isfinite(aupc_t).all() and all(np.isfinite(a).all() for a in toy_audio)):
+        raise AssertionError("toy evaluation not finite")
+    emit({"phase": "evaluate_toy", "card": card, "clips": len(x_t), "aupc": aupc_t.tolist(),
+          "band_coverage": [s[2] for s in shares],
+          "assignment": [s[1] for s in shares], "audios": len(toy_audio),
+          "launches": launches["toy"]})
+    return {k: sum(c[k] for c in launches.values()) for k in SOURCES}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1097,6 +1426,7 @@ def main() -> int:
         build_layer_specs, fold_batchnorm, gtzan_3s_config, gtzan_6s_config, init_params,
         toy_config)
     from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+    from drsa_audio_tpu_torch.runtime import native
     from drsa_audio_tpu_torch.serving import ExplainerService
     from drsa_audio_tpu_torch.utils import nvcc
     from drsa_audio_tpu_torch.utils.constants import (
@@ -1117,9 +1447,14 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.time()
-    libs = nvcc.build(list(SOURCES))
+    with ThreadPoolExecutor(1) as pool:             # g++ beside the six nvcc
+        native_lib = pool.submit(native.build)
+        libs = nvcc.build(list(SOURCES))
+        native_lib = native_lib.result()
     logs = {n: p.with_suffix(".log").read_text().splitlines() for n, p in libs.items()}
     emit({"phase": "build", "seconds": time.time() - t0,
+          "native": {"source": "csrc/audio_runtime.cpp", "library": native_lib.name,
+                     "flags": native.FLAGS},
           "ptxas": {n: [ln.strip() for ln in lines if "registers" in ln or "smem" in ln]
                     for n, lines in logs.items()},
           "spill_store_bytes": {n: sum(int(ln.split("bytes spill stores")[0].split()[-1])
@@ -1152,16 +1487,22 @@ def main() -> int:
     # LRP then run on the same (CPU) mels on both: a max-pool window whose
     # two largest entries, or a pre-activation, lie within the front-end's
     # round-off flips a discrete LRP decision (route, gate, rule mask). U is
-    # a signed permutation, so U U^T is exact.
+    # a signed permutation, so U U^T is exact. The CPU side is a
+    # host_reference: two runs must give the same bits.
     cfg = FrontendConfig.for_case("gtzan")
     perm = np.zeros((64, 64), np.float32)
     perm[np.arange(64), rng.permutation(64)] = rng.choice([-1.0, 1.0], 64)
     small = torch.as_tensor(wavs[1][:4])
     with torch.inference_mode():
-        mel_cpu = logmel(peak_normalize(small), cfg)[:, None]
+        mel_cpu, mel_runs = host_reference(
+            "CPU log-mel", lambda: logmel(peak_normalize(small), cfg)[:, None])
         mel_gpu = logmel(peak_normalize(small.cuda()), cfg)[:, None]
-    ref = {}
-    for dev in ("cpu", "cuda"):
+    mel_f64 = logmel_f64(small, cfg)[:, None]
+    emit({"phase": "card_vs_cpu_logmel_vs_f64", "cpu_runs": mel_runs,
+          "card": (mel_gpu.cpu().double() - mel_f64).abs().max().item(),
+          "cpu": (mel_cpu.double() - mel_f64).abs().max().item()})
+
+    def heatmaps(dev):
         p = {n: {k: v.to(dev) for k, v in d.items()} for n, d in params.items()}
         sp = insert_projection(specs, 10, torch.as_tensor(perm, device=dev), K,
                                input_size=(128, 128))
@@ -1170,12 +1511,16 @@ def main() -> int:
         with torch.inference_mode():
             heat, logits = subspace_heatmaps(sp, p, mel_cpu.to(dev), svc.composite, K,
                                              output_mask=lambda lg: lg * onehot[None, :])
-        ref[dev] = (heat.cpu(), logits.cpu())
+        return heat.cpu(), logits.cpu()
+
+    ref = {"cuda": heatmaps("cuda")}
+    ref["cpu"], heat_runs = host_reference("CPU heatmaps", lambda: heatmaps("cpu"))
     emit({"phase": "card_vs_cpu", "batch": len(small),
           "logmel_max_abs_err": check_close("card vs CPU log-mel", mel_gpu.cpu(), mel_cpu,
                                             atol=1e-4),
           "max_abs_err": check_close("card vs CPU heatmaps", ref["cuda"][0], ref["cpu"][0]),
-          "logits_max_abs_err": check_close("card vs CPU logits", ref["cuda"][1], ref["cpu"][1])})
+          "logits_max_abs_err": check_close("card vs CPU logits", ref["cuda"][1], ref["cpu"][1]),
+          "cpu_reference_runs": {"logmel": mel_runs, "heatmaps": heat_runs}})
     del ref
 
     big = (rng.standard_normal((B_KERNEL, 48000)) * 0.3).astype(np.float32)
@@ -1270,9 +1615,17 @@ def main() -> int:
         launches[path] = {"logmel": rows[path][0]["launches"]}
 
     # --------------------------------------------------- fit then serve
-    fitted = {"fit_then_serve_3s": fit_then_serve_3s(card)}
+    counts_3s, state_3s = fit_then_serve_3s(card)
+    fitted = {"fit_then_serve_3s": counts_3s}
     torch.cuda.empty_cache()
     fitted["fit_then_serve_6s"] = fit_then_serve_6s(card)
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- evaluate and sonify
+    t0 = time.time()
+    evaluated = {"evaluate_3s": evaluate_3s(card, *state_3s)}
+    emit({"phase": "evaluate_3s_total", "card": card, "seconds": time.time() - t0})
+    del state_3s
     torch.cuda.empty_cache()
 
     kernels = []
@@ -1309,7 +1662,8 @@ def main() -> int:
         # phase 11 serves through the kernels of 2 and 6 at their shapes;
         # its counted launches join the sum, its kernels are timed above
         row["fit_then_serve_launches"] = {p: c[name] for p, c in fitted.items()}
-        row["launches"] += sum(c[name] for c in fitted.values())
+        row["evaluate_launches"] = {p: c[name] for p, c in evaluated.items()}
+        row["launches"] += sum(c[name] for c in (*fitted.values(), *evaluated.values()))
         if name == "logmel":
             row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
             row["library_ms"] = sum(v["library_ms"] for v in paths.values())

@@ -5,6 +5,7 @@ window of length n_fft, center=True with reflect padding, one-sided, no
 normalisation. ``stft`` is the FFT path (torch.fft.rfft); the magnitude is
 also two plain matmuls against a DFT basis built in float64 and cast
 (``stft_mag_matmul``), which agrees with the FFT path to float32 round-off.
+``istft`` inverts a centred spectrum by overlap-add.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def hann_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -74,3 +76,34 @@ def stft_mag_matmul(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tenso
     re = frames @ cos_b
     im = frames @ sin_b
     return torch.sqrt(re * re + im * im).transpose(-1, -2)
+
+
+def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """[n, n_frames, n_fft] -> [n, n_fft + hop * (n_frames - 1)]: each frame
+    added in at its hop (F.fold, which gathers per output sample: no
+    atomics, so the same bits on every run)."""
+    n, n_frames, n_fft = frames.shape
+    out_len = n_fft + hop_length * (n_frames - 1)
+    return F.fold(frames.transpose(1, 2), output_size=(1, out_len), kernel_size=(1, n_fft),
+                  stride=(1, hop_length))[:, 0, 0]
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse of ``stft``: complex [..., n_freq, n_frames] -> [..., time].
+    Each frame's irfft is windowed (periodic Hann) and overlap-added, the sum
+    divided by the overlap-added squared window where that exceeds 1e-11,
+    and n_fft//2 samples cropped at each end (then ``length`` kept, if
+    given). Written out, not torch.istft, whose centring and window checks
+    are not this function's."""
+    n_frames = spec.shape[-1]
+    lead = spec.shape[:-2]
+    window = hann_window(n_fft, torch.float32, spec.device)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
+    sig = _overlap_add(frames.reshape(-1, n_frames, n_fft), hop_length)
+    win_sq = _overlap_add((window * window).expand(1, n_frames, n_fft), hop_length)
+    sig = sig / torch.where(win_sq > 1e-11, win_sq, torch.ones_like(win_sq))
+    pad = n_fft // 2
+    sig = sig[:, pad:]
+    sig = sig[:, :length] if length is not None else sig[:, :sig.shape[-1] - pad]
+    return sig.reshape(*lead, sig.shape[-1])

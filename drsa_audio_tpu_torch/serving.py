@@ -4,11 +4,21 @@
 VGG forward -> upper LRP backward -> K concept clones through the lower
 chain -> standard and subspace heatmaps, on the GPU unless the caller asks
 for ``device="cpu"``. The projection U and the class are per-request inputs.
+``explain_files`` streams WAV files from disk: the native decoder
+(runtime.loader) on a thread pool, resampling and padding on the host, and
+whole batches prepared ahead on a background thread (``_prefetched``), while
+the device explains the previous batch. Only the caller's thread touches the
+device.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
@@ -17,6 +27,7 @@ import torch
 from drsa_audio_tpu_torch.models.projection import insert_projection
 from drsa_audio_tpu_torch.models.vgg import LayerSpec
 from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+from drsa_audio_tpu_torch.runtime.loader import load_audio
 from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY
 from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
 from drsa_audio_tpu_torch.xai.explain import (
@@ -28,6 +39,74 @@ class ExplainRequest:
     """One batch of fixed-length waveforms to explain for one class."""
     wavs: np.ndarray          # [b, samples]
     class_idx: int
+
+
+def _prefetched(gen: Iterable, depth: int = 2) -> Iterator:
+    """Run a generator on a background thread with ``depth`` items of
+    lookahead (a bounded queue), so that the host work inside it (decode,
+    resample, stacking) overlaps what the consumer does with each item.
+    An exception in the generator re-raises at the consumer. If the
+    consumer abandons the iterator (break, close, garbage collection), the
+    worker sees the stop event, closes the source generator (releasing its
+    decode pool) and exits."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    errs: list[BaseException] = []
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not _put(item):
+                    break
+        except BaseException as e:     # re-raised at the consumer below
+            errs.append(e)
+        finally:
+            if hasattr(gen, "close"):
+                gen.close()            # unwind the source's with-blocks
+            _put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if errs:
+                    raise errs[0]
+                return
+            yield item
+    finally:
+        stop.set()
+
+
+def _prepare(path: str, window: int, target_sr: int, on_short: str) -> np.ndarray | None:
+    """One file as ``explain_files`` feeds it: decoded (first channel),
+    polyphase-resampled to ``target_sr``, cut to ``window`` samples, and,
+    where shorter, zero-padded (``on_short='pad'``), dropped (``'skip'``:
+    None) or refused (``'error'``: ValueError)."""
+    wav, sr = load_audio(path)
+    w = wav[0]
+    if sr != target_sr:
+        from scipy.signal import resample_poly
+        g = math.gcd(int(sr), target_sr)
+        w = resample_poly(w, target_sr // g, int(sr) // g).astype(np.float32)
+    if len(w) < window:
+        if on_short == "skip":
+            return None
+        if on_short == "error":
+            raise ValueError(f"{path}: {len(w)} samples (@{target_sr} Hz) is shorter "
+                             f"than the {window}-sample analysis window")
+        w = np.pad(w, (0, window - len(w)))
+    return w[:window]
 
 
 class ExplainerService:
@@ -100,3 +179,49 @@ class ExplainerService:
         return {"standard_heatmaps": standard, "subspace_heatmaps": sub,
                 "subspace_relevances": rel, "mask": order,
                 "logits": logits.cpu().numpy()}
+
+    def explain_files(self, paths: Sequence[str], class_name: str, batch_size: int = 32,
+                      window_s: float | None = None, on_short: str = "pad",
+                      decode_threads: int = 4, prefetch_depth: int = 2) -> Iterator[dict]:
+        """Decode -> resample -> slice -> explain, streaming one result dict
+        per batch of ``batch_size`` files, in the order of ``paths``.
+
+        Files decode on a ``decode_threads``-wide pool (the native decoder
+        releases the GIL), with at most max(2 * batch_size, 2 *
+        decode_threads) of them in flight, and ``prefetch_depth`` whole
+        batches are prepared ahead on a background thread. Inputs are
+        checked, not trusted: a file at another sample rate is resampled
+        to the service's, and one shorter than the analysis window
+        (``window_s``, default the case's slice length) is padded, skipped
+        or refused by ``on_short``."""
+        if on_short not in ("pad", "skip", "error"):
+            raise ValueError(f"on_short must be pad|skip|error, got {on_short!r}")
+        window = int((window_s or self.config.slice_length) * self.config.sample_rate)
+        args = (window, self.config.sample_rate, on_short)
+        class_idx = self.mapper[class_name]
+
+        def requests():
+            inflight = max(2 * batch_size, 2 * decode_threads)
+            with ThreadPoolExecutor(decode_threads) as ex:
+                pending = collections.deque()
+                it = iter(paths)
+                for p in it:
+                    pending.append(ex.submit(_prepare, p, *args))
+                    if len(pending) >= inflight:
+                        break
+                batch = []
+                while pending:
+                    w = pending.popleft().result()   # in the order of paths
+                    p_next = next(it, None)
+                    if p_next is not None:
+                        pending.append(ex.submit(_prepare, p_next, *args))
+                    if w is None:
+                        continue
+                    batch.append(w)
+                    if len(batch) == batch_size:
+                        yield ExplainRequest(np.stack(batch), class_idx)
+                        batch = []
+                if batch:
+                    yield ExplainRequest(np.stack(batch), class_idx)
+
+        yield from self.explain_stream(_prefetched(requests(), prefetch_depth))

@@ -671,3 +671,124 @@ def test_preprocess_data_on_card_matches_cpu(cuda):
     assert a.device.type == "cuda" and a.shape == (4, 16 * 16, 64)
     _close(a, a0.to(cuda))
     _close(c * (a + 1e-7), (c0 * (a0 + 1e-7)).to(cuda))
+
+
+def _patch_margin(R: np.ndarray, p: int) -> float:
+    """Smallest gap between two distinct ReLU patch sums of one (clip,
+    concept) of R [b, k, h, w], relative to the largest: the card and the
+    CPU sum a patch in another order, so a gap below round-off could rank
+    two patches otherwise."""
+    b, k, h, w = R.shape
+    s = np.maximum(R, 0).astype(np.float64).reshape(b, k, h // p, p, w // p, p).sum(axis=(3, 5))
+    s = np.sort(s.reshape(b, k, -1), axis=-1)
+    gaps = np.diff(s, axis=-1)
+    return float(gaps[gaps > 0].min() / s.max())
+
+
+@pytest.mark.parametrize("mode,b", [("constant", 20), ("inpainting", 4)])
+def test_flipper_on_card_matches_cpu(cuda, mode, b):
+    """The 3s model at full width, 4 concept maps a clip, perturbation 16:
+    the per-instance scores [steps+1, b] on the card against the CPU (rtol
+    1e-4, atol 1e-5 * max|preds|), then the AUPC from them."""
+    from drsa_audio_tpu_torch.xai.eval import flipping
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    params = vgg.init_params(specs, 0, device="cuda")
+    p_cpu = {n: {k: v.cpu() for k, v in d.items()} for n, d in params.items()}
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((b, 1, 128, 128)).astype(np.float32)
+    # each (clip, concept) ranks its 64 patches by a permutation of 1..64,
+    # one unit apart, under pixel noise of 1e-3
+    rank = np.stack([rng.permutation(64) + 1 for _ in range(b * 4)]).reshape(b, 4, 8, 1, 8, 1)
+    R = (np.broadcast_to(rank / 256.0, (b, 4, 8, 16, 8, 16)).reshape(b, 4, 1, 128, 128)
+         + rng.normal(0, 1e-3, (b, 4, 1, 128, 128))).astype(np.float32)
+    assert _patch_margin(R[:, :, 0], 16) >= 1e-5
+    card = flipping.Flipper(16, mode, forward_batch=50, device=cuda)
+    cpu = flipping.Flipper(16, mode, forward_batch=50, device="cpu")
+    got, flips, n = card.predictions(lambda t: vgg.forward(specs, params, t), x, R)
+    want, _, _ = cpu.predictions(lambda t: vgg.forward(specs, p_cpu, t), x, R)
+    assert got.shape == (7, b) and n == 10
+    atol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(flipping.calculate_aupc(got, flips, n),
+                               flipping.calculate_aupc(want, flips, n), rtol=1e-4, atol=atol)
+
+
+def test_concept_flipping_on_card_launches_the_chain(cuda):
+    """concept_flipping on the 3s model at full width, one clip a class:
+    one generator call a class, each launching chain_block 3 times and
+    first_layer once; finite AUPC [10, 1] and maps [10, 4, 128, 128]."""
+    from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    from drsa_audio_tpu_torch.xai.eval import harness
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    params = vgg.init_params(specs, 0, device="cuda")
+    Us = {c: random_orthogonal(i, 64) for i, c in enumerate(CLASS_IDX_MAPPER)}
+    x = np.random.default_rng(8).standard_normal((10, 1, 128, 128)).astype(np.float32)
+    chain.reset_launches()
+    aupc, mean, flips, R = harness.concept_flipping(specs, params, x, LRP_NAME_MAP_GTZAN, 10, Us,
+                                                    case="gtzan", forward_batch=32)
+    assert chain.LAUNCHES == {"chain_block": 30, "first_layer": 10, "first_block_deep": 0,
+                              "merged_tail": 0}
+    assert aupc.shape == (10, 1) and np.isfinite(aupc).all() and np.isfinite(mean).all()
+    assert R.shape == (10, 4, 128, 128) and np.isfinite(R).all()
+
+
+def test_explain_files_on_card_equals_explain(cuda, tmp_path):
+    """The 3s service on the card: 7 files (one at 22.05 kHz, one of 0.5 s)
+    in batches of 4 against explain on the same prepared waveforms, bit for
+    bit. cuDNN is held to deterministic algorithms for both, so that the
+    same input gives the same bits."""
+    import math
+
+    from scipy.signal import resample_poly
+
+    from drsa_audio_tpu_torch.runtime.wavio import read_wav, write_wav
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    svc = ExplainerService(specs, vgg.init_params(specs, 0, device="cuda"), LRP_NAME_MAP_GTZAN,
+                           {"rock": random_orthogonal(3, 64)}, 4, 10, case="gtzan")
+    rng = np.random.default_rng(9)
+    paths, wavs = [], []
+    for i, (sr, seconds) in enumerate([(16000, 3)] * 3 + [(22050, 3), (16000, 0.5)]
+                                      + [(16000, 3)] * 2):
+        p = str(tmp_path / f"{i}.wav")
+        write_wav(p, np.clip(rng.standard_normal(int(sr * seconds)) * 0.3, -1, 1), sr)
+        w, got_sr = read_wav(p)
+        w = w[0]
+        if got_sr != 16000:
+            g = math.gcd(got_sr, 16000)
+            w = resample_poly(w, 16000 // g, got_sr // g).astype(np.float32)
+        paths.append(p)
+        wavs.append(np.pad(w, (0, max(0, 48000 - len(w))))[:48000])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = list(svc.explain_files(paths, "rock", batch_size=4, decode_threads=3))
+        want = [svc.explain(np.stack(wavs[i:i + 4]), "rock") for i in (0, 4)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert [g["logits"].shape[0] for g in got] == [4, 3]
+    for g, w in zip(got, want):
+        for key in ("standard_heatmaps", "subspace_heatmaps", "subspace_relevances", "mask",
+                    "logits"):
+            np.testing.assert_array_equal(g[key], w[key])
+
+
+def test_mel2audio_on_card_matches_cpu(cuda):
+    """Mel2Audio('gtzan') on the card against the CPU on one 3 s clip:
+    make_audios (standard and 4 concept maps) and transform_mel, atol 1e-5
+    * max|ref| (rtol 1e-4), as the CPU tests hold it to the JAX package."""
+    from drsa_audio_tpu_torch.xai.sonify.mel2audio import Mel2Audio
+    rng = np.random.default_rng(10)
+    wav = (rng.standard_normal(48000) * 0.3).astype(np.float32)
+    info = {"standard_heatmaps": rng.standard_normal((1, 1, 128, 128)).astype(np.float32),
+            "subspace_heatmaps": rng.standard_normal((1, 4, 128, 128)).astype(np.float32)}
+    card, cpu = Mel2Audio("gtzan", device=cuda), Mel2Audio("gtzan", device="cpu")
+    for g, w in zip(card.make_audios(info, wav), cpu.make_audios(info, wav), strict=True):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5 * np.abs(w).max())
+    mel, phase = cpu.transform_audio(wav)
+    want = cpu.transform_mel(mel, phase).numpy()
+    got = card.transform_mel(mel, phase).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())

@@ -22,7 +22,10 @@ def _port_modules():
 def test_port_imports_without_jax():
     mods = _port_modules()
     for m in ("xai.lrp.chain", "xai.lrp.fused_gamma", "ops.fused_frontend",
-              "xai.drsa.preprocessing", "xai.drsa.prototypes", "utils.evaluation"):
+              "xai.drsa.preprocessing", "xai.drsa.prototypes", "utils.evaluation",
+              "runtime.wavio", "runtime.native", "runtime.loader", "serving", "data.toydata",
+              "xai.eval.metrics", "xai.eval.stats", "xai.eval.concept_recovery",
+              "xai.eval.flipping", "xai.eval.harness", "ops.stft", "xai.sonify.mel2audio"):
         assert "drsa_audio_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
