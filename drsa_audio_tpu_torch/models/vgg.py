@@ -10,6 +10,12 @@ BatchNorm layers keep torch's names too: {"weight", "bias", "running_mean",
 "running_var"}, applied in eval mode; ``fold_batchnorm`` merges them into the
 conv or linear layer before them, as the explain path needs.
 
+Training (``forward(train=True)``, ``train_forward_with_bn``) follows the JAX
+package's train mode: dropout from keep masks drawn beforehand
+(``draw_keep_masks``, a ``torch.Generator``), BatchNorm on the batch's
+statistics, and a relu whose gradient at exactly 0 is 0.5, as that of
+``jnp.maximum(x, 0)`` is.
+
 Layouts: NCHW model input, OIHW conv weights, [out, in] linear weights. The
 ``*_nhwc`` variants serve the conv section of the lower LRP segment, whose
 activations the explain path records channels-last.
@@ -105,12 +111,16 @@ def build_layer_specs(cfg: VGGConfig) -> list[LayerSpec]:
 
 
 BN_EPS = 1e-5            # torch's BatchNorm default, as the JAX package
+BN_MOMENTUM = 0.1
 
 
-def init_params(specs: Sequence[LayerSpec], seed: int, device="cuda") -> dict:
+def init_params(specs: Sequence[LayerSpec], seed: int, device=None) -> dict:
     """Kaiming-uniform init with ReLU gain (the JAX package's 'he' scheme),
     drawn from ``np.random.default_rng(seed)``; BatchNorm layers start at
-    scale 1, bias 0, mean 0, var 1."""
+    scale 1, bias 0, mean 0, var 1. On ``device`` (``resolve_device``: CUDA
+    unless named)."""
+    from drsa_audio_tpu_torch.utils.device import resolve_device
+    device = resolve_device(device, "init_params")
     rng = np.random.default_rng(seed)
     params: dict = {}
 
@@ -176,9 +186,50 @@ def batchnorm(x: torch.Tensor, p: dict) -> torch.Tensor:
             + p["bias"].view(shape))
 
 
-def apply_layer(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Inference-mode apply of one layer, NCHW."""
+def relu_train(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with the JAX package's gradient: 1 above 0, 0 below, and
+    0.5 at exactly 0 (``jnp.maximum`` splits a tie; ``torch.relu`` gives 0
+    and ``clamp`` 1 there). 0.5 * (x + |x|) is max(x, 0) bit for bit, and
+    |x|'s gradient at 0 is 0."""
+    return 0.5 * (x + x.abs())
+
+
+def dropout_shapes(specs: Sequence[LayerSpec]) -> dict:
+    """{dropout layer name: its feature count} (each follows a linear layer's
+    relu)."""
+    shapes, features = {}, None
+    for spec in specs:
+        if spec.kind == "linear":
+            features = spec.config["out_f"]
+        elif spec.kind == "dropout":
+            shapes[spec.name] = features
+    return shapes
+
+
+def draw_keep_masks(specs: Sequence[LayerSpec], batch: int,
+                    generator: torch.Generator | None = None, device=None) -> dict:
+    """{dropout layer name: bool keep mask [batch, features]}, each entry
+    kept with probability 1 - rate (uniform < 1 - rate, as
+    ``jax.random.bernoulli``), drawn from ``generator`` on its device (torch's
+    default generator where None)."""
+    if generator is not None:
+        device = generator.device
+    rates = {s.name: s.config["rate"] for s in specs if s.kind == "dropout"}
+    return {name: torch.rand((batch, f), generator=generator, device=device) < 1.0 - rates[name]
+            for name, f in dropout_shapes(specs).items()}
+
+
+def apply_layer(spec: LayerSpec, params: dict, x: torch.Tensor, train: bool = False,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply one layer, NCHW: inference semantics, or with ``train`` the
+    relu's JAX gradient and, given its ``keep`` mask, dropout (kept entries
+    scaled by 1 / (1 - rate)). BatchNorm applies its running statistics here;
+    ``train_forward_with_bn`` normalises with the batch's."""
     kind = spec.kind
+    if train and kind == "relu":
+        return relu_train(x)
+    if train and kind == "dropout" and keep is not None:
+        return torch.where(keep, x / (1.0 - spec.config["rate"]), 0.0)
     if kind == "conv":
         p = params[spec.name]
         return conv2d_same(x, p["weight"], p.get("bias"))
@@ -221,6 +272,15 @@ def apply_layer_nhwc(spec: LayerSpec, params: dict, x: torch.Tensor) -> torch.Te
     raise ValueError(f"apply_layer_nhwc: unsupported kind {kind}")
 
 
+def set_running_stats(params: dict, new: dict) -> None:
+    """Write ``new``'s BatchNorm running statistics (train_forward_with_bn's
+    result) into the tensors of ``params``, in place."""
+    for name, p in params.items():
+        if "running_mean" in p:
+            p["running_mean"].copy_(new[name]["running_mean"])
+            p["running_var"].copy_(new[name]["running_var"])
+
+
 def fold_batchnorm(specs: Sequence[LayerSpec], params: dict):
     """Fold each BatchNorm into the conv or linear layer before it (the JAX
     package's fold_batchnorm, in its operation order):
@@ -251,17 +311,43 @@ def fold_batchnorm(specs: Sequence[LayerSpec], params: dict):
     return new_specs, new_params
 
 
-def forward(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full inference forward -> logits."""
+def forward(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor, train: bool = False,
+            keep_masks: dict | None = None) -> torch.Tensor:
+    """Full forward -> logits; with ``train``, dropout from ``keep_masks``
+    (none where None) and the relu's JAX gradient."""
     for spec in specs:
-        x = apply_layer(spec, params, x)
+        keep = keep_masks.get(spec.name) if train and keep_masks is not None else None
+        x = apply_layer(spec, params, x, train=train, keep=keep)
     return x
+
+
+def train_forward_with_bn(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor,
+                          keep_masks: dict | None = None, momentum: float = BN_MOMENTUM):
+    """Training forward with BatchNorm on the batch's statistics: returns
+    (logits, params with each BN layer's new running statistics). BN
+    normalises with the biased batch variance and moves the running
+    variance toward the unbiased one, running = (1 - momentum) * running +
+    momentum * batch statistic (``F.batch_norm``'s training mode)."""
+    new_params = dict(params)
+    for spec in specs:
+        if spec.kind in ("batchnorm", "batchnorm1d"):
+            p = params[spec.name]
+            mean, var = p["running_mean"].clone(), p["running_var"].clone()
+            x = F.batch_norm(x, mean, var, p["weight"], p["bias"], training=True,
+                             momentum=momentum, eps=BN_EPS)
+            new_params[spec.name] = {**p, "running_mean": mean, "running_var": var}
+        else:
+            keep = keep_masks.get(spec.name) if keep_masks is not None else None
+            x = apply_layer(spec, params, x, train=True, keep=keep)
+    return x, new_params
 
 
 class VGG(nn.Module):
     """The layer list as an nn.Module: state_dict keys are the reference's
     ``features.N.weight`` / ``classifier.N.bias``. ``params()`` hands the same
-    tensors to the functional path."""
+    tensors to the functional path. In training mode ``forward`` is
+    ``train_forward_with_bn`` with keep masks from torch's default generator,
+    and the BN buffers take the new running statistics."""
 
     def __init__(self, cfg: VGGConfig):
         super().__init__()
@@ -305,7 +391,14 @@ class VGG(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return forward(self.specs, self.params(), x)
+        params = self.params()
+        if not self.training:
+            return forward(self.specs, params, x)
+        masks = draw_keep_masks(self.specs, x.shape[0], device=x.device)
+        logits, new = train_forward_with_bn(self.specs, params, x, masks)
+        with torch.no_grad():
+            set_running_stats(params, new)
+        return logits
 
 
 def gtzan_6s_config() -> VGGConfig:

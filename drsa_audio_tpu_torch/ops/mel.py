@@ -47,4 +47,5 @@ def _device_filterbank(n_freqs: int, n_mels: int, sample_rate: int,
 def mel_scale(spec_mag: torch.Tensor, n_mels: int, sample_rate: int) -> torch.Tensor:
     """[..., n_freq, time] magnitude -> [..., n_mels, time]."""
     fb = _device_filterbank(spec_mag.shape[-2], n_mels, sample_rate, spec_mag.device)
+    fb = fb.to(spec_mag.dtype)                   # float64 for a float64 reference
     return (spec_mag.transpose(-1, -2) @ fb).transpose(-1, -2)

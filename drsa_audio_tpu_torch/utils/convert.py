@@ -17,8 +17,11 @@ _RENAME = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
 
 
-def from_jax_params(params_np: dict, device="cuda") -> dict:
-    """{name: {"w": ndarray, ...}} -> the port's params on ``device``."""
+def from_jax_params(params_np: dict, device=None) -> dict:
+    """{name: {"w": ndarray, ...}} -> the port's params on ``device``
+    (``resolve_device``: CUDA unless named)."""
+    from drsa_audio_tpu_torch.utils.device import resolve_device
+    device = resolve_device(device, "from_jax_params")
     return {name: {_RENAME[k]: torch.as_tensor(np.array(v, np.float32),
                                                device=device)
                    for k, v in p.items()}

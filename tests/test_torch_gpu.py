@@ -792,3 +792,109 @@ def test_mel2audio_on_card_matches_cpu(cuda):
     want = cpu.transform_mel(mel, phase).numpy()
     got = card.transform_mel(mel, phase).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
+def _mels_card_vs_cpu(got, want, plain):
+    """Card against CPU log-mels [b, 1, h, w] of the augment pipelines. Every
+    clip on the mel power, rtol 1e-4, atol 5e-5 * the clip's peak; the clips
+    in ``plain`` (neither filtered nor pitch-shifted) also in log10 units,
+    rtol 1e-4, atol 1e-4. A filter's stopband and the top of an octave-down
+    shift hold bins 60-100 dB under the peak, where float32 FFT round-off
+    (cuFFT or the CPU's) is the value itself; a pitch shift's two more FFT
+    round trips and resample leave up to 1.02e-5 of the peak between the
+    devices (measured)."""
+    got, want = got.cpu().double(), want.double()
+    pg, pw = 10.0 ** got, 10.0 ** want
+    peak = pw.amax(dim=(1, 2, 3), keepdim=True)
+    bad = ((pg - pw).abs() > 1e-4 * pw + 5e-5 * peak).sum().item()
+    assert bad == 0, f"{bad} mel-power elements outside rtol 1e-4, atol 5e-5 * peak"
+    np.testing.assert_allclose(got[plain].numpy(), want[plain].numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["gtzan", "gtzan_6s", "toy"])
+def test_augment_pipelines_on_card_match_cpu(cuda, case):
+    """The augment + log-mel pipelines with augmentation on, card against
+    CPU on the same CPU-drawn draws (16 clips; the GTZAN pipelines with
+    pitch shifts, filters and stretches among them)."""
+    from drsa_audio_tpu_torch.models import train
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig
+    cfg = FrontendConfig.for_case(case)
+    n = 29 * 16000 if case != "toy" else 16000
+    rng = np.random.default_rng(11)
+    wavs = torch.as_tensor((rng.standard_normal((16, n)) * 0.3).astype(np.float32))
+    g = torch.Generator().manual_seed(3)
+    if case == "toy":
+        draws = train.sample_toy_draws(16, n, cfg, True, True, generator=g)
+        run = train.toy_augment_and_mel
+        plain = torch.ones(16, dtype=torch.bool)
+    else:
+        draws = train.sample_gtzan_draws(16, n, cfg, True, True, generator=g)
+        run = train.gtzan_augment_and_mel
+        plain = ~(draws["pitch_on"] | draws["filter_on"])
+        assert draws["pitch_on"].any() and draws["filter_on"].any() and plain.any()
+    with torch.no_grad():
+        want = run(wavs, draws, cfg, True, True)
+        got = run(wavs.to(cuda), {k: v.to(cuda) for k, v in draws.items()}, cfg, True, True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    _mels_card_vs_cpu(got, want, plain)
+
+
+@pytest.mark.parametrize("model", ["gtzan3s", "bn_small"])
+def test_train_step_on_card_matches_cpu(cuda, model):
+    """One train step from the same mels, params and keep masks, card
+    against CPU (TF32 off): loss rtol 1e-5; every gradient and updated
+    param rtol 1e-4, atol 1e-5 * max|CPU| per tensor (a param also the
+    learning rate times its gradient's atol); BN state likewise.
+    The conv and BatchNorm layers' gradients, summed over many positions a
+    channel, at atol 2e-3 * max|CPU| (1e-2 with BatchNorm): the card's
+    float32 kernels sit up to 1.2e-3 (cuDNN's backward-filter, 3s) and
+    5.1e-3 (below the BN backward, 6s) of max|grad| from float64 (measured;
+    the CPU's 6.7e-7 and 6.6e-5); with BatchNorm the other gradients at atol
+    1e-4 * max|CPU| (5.2e-5 measured on the card, 3.1e-5 on the CPU). A bias
+    that BatchNorm follows has a gradient of zero but for round-off: at the
+    conv factor times the model's largest |gradient|."""
+    from drsa_audio_tpu_torch.models import train
+    if model == "gtzan3s":
+        cfg, shape = vgg.gtzan_3s_config(), (8, 1, 128, 128)
+    else:
+        cfg = vgg.VGGConfig(n_filters=(8, 16), pool_kernels=((4, 4), (2, 2)), n_dense=32,
+                            n_classes=4, dropout=0.2, block_depth=2, dense_depth=1,
+                            input_size=(64, 64))
+        shape = (8, 1, 64, 64)
+    specs = vgg.build_layer_specs(cfg)
+    has_bn = cfg.conv_bn or cfg.dense_bn
+    rng = np.random.default_rng(12)
+    mels = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+    labels = torch.as_tensor(np.arange(8) % cfg.n_classes)
+    masks = vgg.draw_keep_masks(specs, 8, torch.Generator().manual_seed(4))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = vgg.init_params(specs, 0, device=dev)
+        trainable, state = train.split_trainable(params)
+        opt = train.make_optimizer(trainable, 1e-3)
+        step = train.make_train_step(specs, opt, has_bn=has_bn)
+        loss, _ = step(params, mels.to(dev), labels.to(dev),
+                       {"dropout": {k: v.to(dev) for k, v in masks.items()}})
+        out[str(dev)] = (loss.item(), {f"{n}.{k}": (v.detach().cpu(), None if v.grad is None
+                                                     else v.grad.cpu())
+                                       for n, p in params.items() for k, v in p.items()})
+    (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    summed = {f"{s.name}.{k}" for s in specs if s.kind in ("conv", "batchnorm")
+              for k in ("weight", "bias")}
+    cancelled = {f"{a.name}.bias" for a, b in zip(specs, specs[1:])
+                 if a.kind in ("conv", "linear") and b.kind.startswith("batchnorm")}
+    factor, other = (1e-2, 1e-4) if has_bn else (2e-3, 1e-5)
+    top = max(gr.abs().max().item() for _, gr in pc.values() if gr is not None)
+    for name, (v, gr) in pc.items():
+        if gr is None:
+            assert pg[name][1] is None, name
+            atol = 0.0
+        else:
+            atol = (factor * top if name in cancelled else
+                    (factor if name in summed else other) * gr.abs().max().item())
+            torch.testing.assert_close(pg[name][1], gr, rtol=1e-4, atol=atol, msg=f"{name} grad")
+        # an update moves a param by the learning rate times its gradient
+        torch.testing.assert_close(pg[name][0], v, rtol=1e-4,
+                                   atol=1e-5 * v.abs().max().item() + 1e-3 * atol, msg=name)

@@ -25,7 +25,9 @@ def test_port_imports_without_jax():
               "xai.drsa.preprocessing", "xai.drsa.prototypes", "utils.evaluation",
               "runtime.wavio", "runtime.native", "runtime.loader", "serving", "data.toydata",
               "xai.eval.metrics", "xai.eval.stats", "xai.eval.concept_recovery",
-              "xai.eval.flipping", "xai.eval.harness", "ops.stft", "xai.sonify.mel2audio"):
+              "xai.eval.flipping", "xai.eval.harness", "ops.stft", "xai.sonify.mel2audio",
+              "utils.config", "models.experimental", "ops.augment", "models.train",
+              "data.datasets", "scripts.train"):
         assert "drsa_audio_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

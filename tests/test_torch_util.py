@@ -211,3 +211,76 @@ if __name__ == "__main__":
         print(f"{name} seed {seed}: pool margin {pool:.3g}, relu margin {relu:.3g}, "
               f"windows routed otherwise {flips} (largest gap {flip_gap:.3g}), "
               f"gap/change ratio {ratio:.3g}, log-mel difference {mel_diff:.3g}", flush=True)
+
+
+# ------------------------------------------------ JAX's draws, for the port
+
+def jax_toy_draws(keys, n_samples: int, config, wav_augment: bool, mel_augment: bool,
+                  mask_param: int = 10) -> dict:
+    """The draws of the JAX package's toy_augment_and_mel for each key, in
+    its order (jax.random.split(key, 9), then fold_in(key, 1) for the mask),
+    stacked in the port's draws format (numpy)."""
+    r = jax.random
+    ir_len = int(0.3 * config.sample_rate)     # the JAX reverb's decay_s * sample_rate
+    per = []
+    for key in keys:
+        d = {}
+        if wav_augment:
+            ks = r.split(key, 9)
+            d.update(gain_on=r.bernoulli(ks[0], 0.5), gain_db=r.uniform(ks[1], (), minval=-12.0, maxval=3.0),
+                     delay_on=r.bernoulli(ks[2], 0.4), delay_ms=r.randint(ks[3], (), 50, 300),
+                     reverb_on=r.bernoulli(ks[4], 0.3), reverb_ir=r.normal(ks[5], (ir_len,)),
+                     noise_on=r.bernoulli(ks[6], 0.3), noise=r.normal(ks[7], (n_samples,)),
+                     noise_ratio=r.uniform(ks[8], (), minval=1e-3, maxval=1e-1))
+        if mel_augment:
+            h, w = config.n_mels, config.width
+            kc, k1, k2 = r.split(r.fold_in(key, 1), 3)
+            k3, k4 = r.split(kc)
+            d.update(mask_rows=r.bernoulli(kc, 0.5), n_r=r.randint(k1, (), 1, mask_param // 2 + 2),
+                     r0=r.randint(k2, (), 0, h - mask_param // 2),
+                     n_c=r.randint(k3, (), 1, mask_param + 2), c0=r.randint(k4, (), 0, w - mask_param))
+        per.append(d)
+    return {k: np.stack([np.asarray(d[k]) for d in per]) for k in per[0]} if per[0] else {}
+
+
+def jax_gtzan_draws(keys, n_samples: int, config, wav_augment: bool, mel_augment: bool,
+                    mask_param: int = 40) -> dict:
+    """The draws of the JAX package's gtzan_augment_and_mel for each key, in
+    its order (jax.random.split(key, 16); the masks split ks[14] in 4),
+    stacked in the port's draws format (numpy)."""
+    r = jax.random
+    window = config.sample_rate * config.slice_length
+    per = []
+    for key in keys:
+        ks = r.split(key, 16)
+        d = {"start": r.randint(ks[0], (), 0, n_samples - window)}
+        if wav_augment:
+            d.update(gain_on=r.bernoulli(ks[1], 0.5), gain_db=r.uniform(ks[2], (), minval=-12.0, maxval=3.0),
+                     semitones=r.uniform(ks[3], (), minval=-12.0, maxval=12.0),
+                     pitch_on=r.bernoulli(ks[4], 0.3), use_low=r.bernoulli(ks[5], 0.5),
+                     low_f=r.uniform(ks[6], (), minval=1400.0, maxval=4000.0),
+                     high_f=r.uniform(ks[7], (), minval=200.0, maxval=1400.0),
+                     filter_on=r.bernoulli(ks[8], 0.4), noise_on=r.bernoulli(ks[9], 0.3),
+                     noise=r.normal(ks[10], (window,)),
+                     noise_ratio=r.uniform(ks[11], (), minval=1e-3, maxval=1e-1))
+        if mel_augment:
+            d["rate"] = r.uniform(ks[12], (), minval=0.8, maxval=1.2)
+        d["insert"] = r.randint(ks[13], (), 0, 1 << 20)
+        if mel_augment:
+            h, w = config.n_mels, config.width
+            k1, k2, k3, k4 = r.split(ks[14], 4)
+            d.update(n_rows=r.randint(k1, (), 1, mask_param // 2 + 1),
+                     row0=r.randint(k2, (), 0, h - mask_param // 2),
+                     n_cols=r.randint(k3, (), 1, mask_param + 1),
+                     col0=r.randint(k4, (), 0, w - mask_param))
+        per.append(d)
+    return {k: np.stack([np.asarray(d[k]) for d in per]) for k in per[0]}
+
+
+def torch_draws(draws: dict, device="cpu") -> dict:
+    """Numpy draws as the port's tensors: integers as int64."""
+    out = {}
+    for k, v in draws.items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t.long() if t.dtype in (torch.int32, torch.int64) else t
+    return out
