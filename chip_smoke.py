@@ -147,6 +147,30 @@
    generate_dataset's 50 clips a class) in a subprocess: exit 0, ckpt_12.pt
    and the stats CSV written, the last epoch's mean training loss below the
    first's.
+14. The research workflow through the port's CLIs, each stage's
+   ``main([...])`` called in this process on the card with every launch
+   counter set to 0 just before and read just after, timed with the device
+   synchronised, one line a stage; the counts must equal those derived
+   from the stage's HeatmapGenerator chunks (chain_block 3 and first_layer
+   1 a toy chunk, chain_block 4 and first_block_deep 1 a 6s chunk; none in
+   generation, training, extraction and optimisation). Toy at full width
+   (K=4, layer 10, d=16): generate_toydata (50 clips a class), train (8
+   epochs), extract_drsa_data (20 locations), optimize_subspaces (500 steps
+   x 3 runs: every U orthogonal to 1e-4, every best run ending above its
+   start), run_concept_eval (DRSA and random, interclass at 10: AUPCs and
+   CIs finite), sonify_prototypes (class1: finite WAVs of 15,120 samples)
+   and concept_recovery_experiment (64 clips a class, 4 epochs, 300 steps);
+   the prototype chunk's maps on the trained weights against the plain
+   walk (rtol 1e-4, atol 1e-5 * max|plain|). demo_toy_workflow is not run:
+   its plots need matplotlib, which the card's host lacks. GTZAN-6s at full
+   width with BatchNorm: generate_gtzan_synth --multi-concept (10 songs a
+   genre), train --case gtzan_6s (1 epoch), run_gtzan_synth_workflow at
+   layer 33 (40 clips a class, 200 steps x 1 run, 2 songs a genre x 3
+   chunks evaluated), one call a stage with --skip for the others; WAVs of
+   91,800 samples; the prototype chunk's maps on the trained weights held
+   as phase 13 holds the trained 6s model (within 10x the plain walk's own
+   spread). Depth is cut (clips, epochs, steps, runs), never width: the
+   cuts are listed in ``workflow``'s docstring.
 
 The kernels line gives, for each kernel, its numbers per path under
 "paths" (3s, 3s_merged and 3s_shared at batch 256, 6s at batch 64,
@@ -154,8 +178,9 @@ The kernels line gives, for each kernel, its numbers per path under
 frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
 batches of 10) and at its top level their sums over the paths (launches:
 the counts of the served requests of 2, 5m, 6 and 9, the calls of 10 and
-the counted runs of 11, 12 and 13, also apart under fit_then_serve_launches,
-evaluate_launches and train_then_explain_launches;
+the counted runs of 11, 12, 13 and 14, also apart under
+fit_then_serve_launches, evaluate_launches, train_then_explain_launches and
+workflow_launches (by CLI stage);
 max_abs_err: the largest). The log-mel row also carries the matmul-DFT
 logmel's time, and as library_ms the port's logmel(use_matmul_dft=False)
 (cuFFT through torch.fft.rfft), which the port never calls on a path.
@@ -1684,13 +1709,32 @@ def resume_bit_equal(card: str, specs, pipeline, feed, tmp: str) -> dict:
             "loss_last": lb[-1].item()}
 
 
+def conditioning(got, want, moved) -> dict:
+    """How far apart two float32 walks of one batch may fall: per clip,
+    max|kernels - plain| (``got`` against ``want``) and max|plain - the
+    plain walk of the mels times (1 + 1e-7 * seeded noise)| (``moved``),
+    each over the clip's max|plain|; their median and max over the clips.
+    Fails unless the kernels' median is within 10x the perturbed plain
+    walk's (measured 0.4-0.6x on the trained 6s model): a wrong kernel
+    parts from the plain walk on every clip."""
+    import torch
+    if not (torch.isfinite(got).all() and torch.isfinite(moved).all()):
+        raise AssertionError("conditioning: heatmaps not finite")
+    peak = want.abs().amax(dim=(1, 2, 3))
+
+    def spread(a):
+        r = ((a - want).abs().amax(dim=(1, 2, 3)) / peak).cpu().numpy()
+        return {"median": float(np.median(r)), "max": float(r.max())}
+    out = {"kernels_vs_plain": spread(got), "plain_vs_plain_perturbed_1e-7": spread(moved),
+           "max_abs_plain": want.abs().max().item()}
+    if not out["kernels_vs_plain"]["median"] <= 10 * out["plain_vs_plain_perturbed_1e-7"]["median"]:
+        raise AssertionError(f"conditioning: the kernels part from the plain walk beyond "
+                             f"its own spread: {out}")
+    return out
+
+
 def lrp_conditioning(svc, wavs, class_name: str) -> dict:
-    """How far apart two float32 walks of one request may fall: per clip,
-    max|kernels - plain| and max|plain - plain of the mels times (1 + 1e-7
-    * seeded noise)|, each over the clip's max|plain|; their median and
-    max over the clips. Fails unless the kernels' median is within 10x the
-    perturbed plain walk's (measured 0.4-0.6x on the trained 6s model): a
-    wrong kernel parts from the plain walk on every clip."""
+    """``conditioning`` of one service request."""
     import torch
     from drsa_audio_tpu_torch.models.projection import insert_projection
     from drsa_audio_tpu_torch.ops.frontend import logmel, peak_normalize
@@ -1708,19 +1752,7 @@ def lrp_conditioning(svc, wavs, class_name: str) -> dict:
                                   input_size=(cfg.n_mels, cfg.width))
         moved, _ = subspace_heatmaps(specs, svc.params, mels, svc.composite, K,
                                      output_mask=lambda lg: lg * onehot[None, :], fused=False)
-    if not (torch.isfinite(got).all() and torch.isfinite(moved).all()):
-        raise AssertionError("lrp_conditioning: heatmaps not finite")
-    peak = want.abs().amax(dim=(1, 2, 3))
-
-    def spread(a):
-        r = ((a - want).abs().amax(dim=(1, 2, 3)) / peak).cpu().numpy()
-        return {"median": float(np.median(r)), "max": float(r.max())}
-    out = {"kernels_vs_plain": spread(got), "plain_vs_plain_perturbed_1e-7": spread(moved),
-           "max_abs_plain": want.abs().max().item()}
-    if not out["kernels_vs_plain"]["median"] <= 10 * out["plain_vs_plain_perturbed_1e-7"]["median"]:
-        raise AssertionError(f"lrp_conditioning: the kernels part from the plain walk beyond "
-                             f"its own spread: {out}")
-    return out
+    return conditioning(got, want, moved)
 
 
 def train_then_explain(card: str) -> dict:
@@ -1890,6 +1922,298 @@ def train_then_explain(card: str) -> dict:
         emit({"phase": "train_toy_cli", "card": card, "epochs": TOY_EPOCHS,
               "clips_per_class": TOY_PER_CLASS, "seconds": cli_s, "files": files,
               "train_loss": toy_stats["train_loss"], "valid_acc": toy_stats["valid_acc"]})
+    return launches
+
+
+# ------------------------------------------------------------ phase 14
+
+WF_TOY_PER_CLASS, WF_TOY_EPOCHS, WF_TOY_STEPS, WF_TOY_RUNS = 50, 8, 500, 3
+WF_REC_PER_CLASS, WF_REC_EPOCHS, WF_REC_STEPS = 64, 4, 300
+WF_SONGS, WF_CLIPS, WF_6S_STEPS, WF_6S_SPC = 10, 40, 200, 2
+ATTR_BATCH = 32            # run_concept_eval's --attr-batch default
+CHAIN_PER_CHUNK = {"toy": {"chain_block": 3, "first_layer": 1},          # layer 10
+                   "gtzan_6s": {"chain_block": 4, "first_block_deep": 1}}  # layer 33
+
+
+def eval_chunks(per_class: int, n_classes: int) -> int:
+    """HeatmapGenerator chunks of one run_concept_eval at one K and layer
+    with both algorithms and the interclass matrix: each class's DRSA maps,
+    the random baseline's 3 permutations of every class, and the matrix's
+    n_classes^2 (class U, class) blocks, each per_class clips in chunks of
+    ATTR_BATCH."""
+    return (n_classes * (1 + 3) + n_classes ** 2) * -(-per_class // ATTR_BATCH)
+
+
+def chain_counts(case: str, chunks: int) -> dict:
+    return {k: v * chunks for k, v in CHAIN_PER_CHUNK[case].items()}
+
+
+def workflow_stage(name: str, card: str, run, counts: dict, **beside) -> dict:
+    """One CLI stage of phase 14: ``run()`` with every launch counter set to
+    0 just before and read just after (``counted``: fails unless they are
+    ``counts``), on the host clock with the device synchronised before and
+    after; emits the stage's line and returns its counts."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, got = counted(name, run, counts)
+    torch.cuda.synchronize()
+    emit({"phase": name, "card": card, "seconds": time.perf_counter() - t0, "launches": got,
+          **beside})
+    return got
+
+
+def check_runs(root: str, name: str) -> dict:
+    """Every run under ``root`` (``{class}/layer{L}/run{r}``, the JAX
+    layout): U orthogonal (max|U^T U - I| <= 1e-4), and each class's best
+    run ending above its start."""
+    from drsa_audio_tpu_torch.utils.evaluation import get_best_run
+    worst, layer_dirs = 0.0, []
+    for dirpath, dirs, files in os.walk(root):
+        if "projection_matrix.npy" in files:
+            U = np.load(os.path.join(dirpath, "projection_matrix.npy")).astype(np.float64)
+            worst = max(worst, float(np.abs(U.T @ U - np.eye(len(U))).max()))
+        if any(d.startswith("run") for d in dirs):
+            layer_dirs.append(dirpath)
+    best = [get_best_run(p)[3] for p in sorted(layer_dirs)]
+    if not (layer_dirs and worst <= 1e-4 and all(b[-1] > b[0] for b in best)):
+        raise AssertionError(f"{name}: max|U^T U - I| {worst}, best runs first -> last "
+                             f"{[(b[0], b[-1]) for b in best]}")
+    return {"pairs": len(layer_dirs), "orthogonality_max_err": worst,
+            "best_first_objective": [float(b[0]) for b in best],
+            "best_last_objective": [float(b[-1]) for b in best]}
+
+
+def check_eval(out: str, name: str) -> dict:
+    """run_concept_eval's files: every AUPC finite, every CI finite."""
+    aupcs = {f: np.load(os.path.join(out, f)) for f in sorted(os.listdir(out))
+             if f.endswith(".npy") and ("aupcs" in f or f.startswith("standard"))}
+    cis = []
+    for f in ("sep_peak_analysis.json", "drsa_vs_standard_ci.json"):
+        for entry in json.load(open(os.path.join(out, f))).values():
+            cis += [v["ci95"] for v in entry.values() if isinstance(v, dict) and "ci95" in v]
+    cis += [json.load(open(os.path.join(out, f)))["ci95"] for f in os.listdir(out)
+            if f.endswith("_ci.json") and f.startswith("interclass")]
+    if not (aupcs and cis and all(np.isfinite(a).all() for a in aupcs.values())
+            and np.isfinite(cis).all()):
+        raise AssertionError(f"{name}: AUPCs {list(aupcs)} or CIs {cis} not finite")
+    return {"aupc_mean": {f: float(a.mean()) for f, a in aupcs.items()}, "cis": len(cis)}
+
+
+def check_sonified(out: str, name: str, length: int, num_concepts: int = K) -> dict:
+    """sonify_prototypes' files: prototypes.json and, per sonified slice,
+    the standard and K concept WAVs, finite and ``length`` samples."""
+    from drsa_audio_tpu_torch.runtime.wavio import read_wav
+    manifest = json.load(open(os.path.join(out, "prototypes.json")))
+    wavs = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
+    sonified = sum(p.get("sonified", False) for p in manifest["prototypes"])
+    shapes = {read_wav(os.path.join(out, f))[0].shape for f in wavs}
+    finite = all(np.isfinite(read_wav(os.path.join(out, f))[0]).all() for f in wavs)
+    if not (len(wavs) == sonified * (num_concepts + 1) and sonified and finite
+            and shapes == {(1, length)}):
+        raise AssertionError(f"{name}: {wavs}, shapes {shapes}, finite {finite}")
+    return {"wavs": len(wavs), "samples": length, "subset_index": manifest["subset_index"],
+            "subset_objective": manifest["subset_objective"]}
+
+
+def prototype_generator(cfg, model_dir: str, subspaces: str, batch, sample_class: str,
+                        layer: int, subset_size: int = 10, max_sonify: int = 2):
+    """The HeatmapGenerator and the mels of sonify_prototypes' prototype
+    chunk, rebuilt from its checkpoint, U and prototypes.json."""
+    import torch
+    from drsa_audio_tpu_torch.scripts.common import load_model
+    from drsa_audio_tpu_torch.utils.evaluation import load_projection_matrix
+    from drsa_audio_tpu_torch.xai.explain import HeatmapGenerator
+    specs, params = load_model(cfg, model_dir, None, "cuda")
+    U = load_projection_matrix(os.path.join(subspaces, sample_class, f"layer{layer}"))
+    gen = HeatmapGenerator(specs=specs, params=params, U=U, name_map=cfg.lrp_name_map,
+                           sample_class=sample_class, num_concepts=K, layer_idx=layer,
+                           case=cfg.case, device="cuda")
+    return gen, torch.as_tensor(batch[:max_sonify], device="cuda")
+
+
+def generator_conditioning(gen, x) -> dict:
+    """lrp_conditioning of a HeatmapGenerator chunk: the kernels' walk and
+    the plain walk on ``x``, and the plain walk on x times (1 + 1e-7 *
+    seeded noise), all through subspace_heatmaps on the generator's
+    specs_proj."""
+    import torch
+    from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
+    onehot = torch.zeros(gen.num_classes, device="cuda")
+    onehot[gen.class_idx] = 1.0
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def walk(mels, fused):
+        return subspace_heatmaps(gen.specs_proj, gen.params, mels, gen.composite,
+                                 gen.num_concepts, output_mask=lambda lg: lg * onehot,
+                                 fused=fused)[0]
+    with torch.inference_mode():
+        moved = x * (1 + 1e-7 * torch.randn(x.shape, generator=g, device="cuda"))
+        return conditioning(walk(x, None), walk(x, False), walk(moved, False))
+
+
+def workflow(card: str) -> dict:
+    """Phase 14: the research workflow through the port's CLIs, each
+    stage's ``main([...])`` called in this process on the card with every
+    launch counter set to 0 just before and read just after, timed with the
+    device synchronised; the counts must equal those derived from the
+    stage's HeatmapGenerator chunks. Returns {stage: launch counts}.
+
+    Toy (the toy config at full width, K=4, layer 10, d=16): generate_toydata
+    (50 clips a class), scripts.train (8 epochs), extract_drsa_data (20
+    locations), optimize_subspaces (K=4, 500 steps x 3 runs),
+    run_concept_eval (DRSA and random, interclass at 10), sonify_prototypes
+    (class1), concept_recovery_experiment (64 clips a class, 4 epochs, 300
+    steps x 3 runs). The prototype chunk's maps on the trained weights
+    against the plain walk at the chain tolerance. demo_toy_workflow is not
+    run: its plots need matplotlib, which this host lacks (the CPU tests
+    run it).
+
+    GTZAN-6s (the flagship at full width with BatchNorm): generate_gtzan_synth
+    --multi-concept (10 songs a genre: fold 1 holds 2, which fill
+    --samples-per-class 2), scripts.train --case gtzan_6s (1 epoch), then
+    run_gtzan_synth_workflow at layer 33 (40 clips a class, 200 steps x 1
+    run), one call a stage with --skip for the others. The prototype
+    chunk's maps on the trained weights against the plain walk as phase 13
+    holds the trained 6s model (conditioning: within 10x the plain walk's
+    own spread).
+
+    Cut in depth only, never in width: clips a class (toy 50, reference
+    2,000; recovery 64, reference 512), epochs (toy 8 and recovery 4,
+    reference 40-80; 6s 1, reference 500), DRSA steps and runs (toy 500 x 3
+    and recovery 300 x 3, reference 2,000-5,000 x 3; 6s 200 x 1), the 6s
+    corpus (10 songs a genre, 40 clips a class extracted, reference 300), its
+    evaluation (2 songs a genre x 3 chunks, reference 20) and DRSA layers
+    (33 of 19/26/33)."""
+    import tempfile
+
+    import torch
+    from drsa_audio_tpu_torch.data.datasets import (
+        get_songs_drsa, get_songs_toy, get_toy_samplelist)
+    from drsa_audio_tpu_torch.scripts import (
+        concept_recovery_experiment, extract_drsa_data, generate_gtzan_synth, generate_toydata,
+        optimize_subspaces, run_concept_eval, run_gtzan_synth_workflow, sonify_prototypes,
+        train)
+    from drsa_audio_tpu_torch.scripts.common import experiment_config
+    from drsa_audio_tpu_torch.utils.evaluation import get_train_stats
+
+    launches = {}
+    dev = ["--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------------------ toy
+        d = {k: os.path.join(tmp, k) for k in ("toy", "model", "drsa", "sub", "eval", "son")}
+        launches["toy_generate"] = workflow_stage(
+            "workflow_toy_generate", card, lambda: generate_toydata.main(
+                ["--out", d["toy"], "--per-class", str(WF_TOY_PER_CLASS), "--seed", "0", *dev]),
+            {}, clips_per_class=WF_TOY_PER_CLASS)
+        launches["toy_train"] = workflow_stage(
+            "workflow_toy_train", card, lambda: train.main(
+                ["--case", "toy", "--data", d["toy"], "--out", d["model"],
+                 "--epochs", str(WF_TOY_EPOCHS), *dev]), {}, epochs=WF_TOY_EPOCHS)
+        stats = get_train_stats(d["model"])
+        if not (f"ckpt_{WF_TOY_EPOCHS}.pt" in os.listdir(d["model"])
+                and np.isfinite(stats["train_loss"]).all()):
+            raise AssertionError(f"toy train CLI: {os.listdir(d['model'])}, {stats}")
+        model = ["--case", "toy", "--data", d["toy"], "--checkpoint", d["model"], *dev]
+        launches["toy_extract"] = workflow_stage(
+            "workflow_toy_extract", card, lambda: extract_drsa_data.main(
+                [*model, "--out", d["drsa"], "--layers", "10", "--num-locations", "20"]), {})
+        for cls in ("class1", "class2"):
+            arr = np.load(os.path.join(d["drsa"], cls, "dataset_layer10.npz"))
+            if arr["activations"].shape != (WF_TOY_PER_CLASS * 20, 16) or not np.isfinite(
+                    arr["contexts"]).all():
+                raise AssertionError(f"toy extraction {cls}: {arr['activations'].shape}")
+        sub4 = os.path.join(d["sub"], f"{K}_concepts")
+        launches["toy_optimize"] = workflow_stage(
+            "workflow_toy_optimize", card, lambda: optimize_subspaces.main(
+                ["--data", d["drsa"], "--out", sub4, "--num-concepts", str(K),
+                 "--steps", str(WF_TOY_STEPS), "--runs", str(WF_TOY_RUNS), *dev]), {},
+            steps=WF_TOY_STEPS, runs=WF_TOY_RUNS)
+        emit({"phase": "workflow_toy_runs", "card": card, **check_runs(sub4, "toy runs")})
+        per_class = min(len(get_toy_samplelist(d["toy"], "class1", "test")),
+                        experiment_config(None, "toy").eval.samples_per_class)
+        chunks = eval_chunks(per_class, 2)
+        launches["toy_eval"] = workflow_stage(
+            "workflow_toy_eval", card, lambda: run_concept_eval.main(
+                [*model, "--subspaces", d["sub"], "--out", d["eval"], "--num-concepts", str(K),
+                 "--layers", "10", "--algorithms", "drsa", "random",
+                 "--interclass-layer", "10"]),
+            chain_counts("toy", chunks), clips_per_class=per_class, generator_chunks=chunks)
+        emit({"phase": "workflow_toy_eval_files", "card": card,
+              **check_eval(d["eval"], "toy eval")})
+        launches["toy_sonify"] = workflow_stage(
+            "workflow_toy_sonify", card, lambda: sonify_prototypes.main(
+                [*model, "--subspaces", sub4, "--out", d["son"], "--sample-class", "class1",
+                 "--layer", "10", "--num-concepts", str(K)]), chain_counts("toy", 1))
+        emit({"phase": "workflow_toy_sonify_files", "card": card,
+              **check_sonified(d["son"], "toy sonify", 240 * 63)})
+        # the prototype chunk on the trained toy weights against the plain walk
+        subset = json.load(open(os.path.join(d["son"], "prototypes.json")))["subset_index"]
+        batch, _ = get_songs_toy(d["toy"], "class1", device="cuda")
+        gen, x = prototype_generator(experiment_config(None, "toy"), d["model"], sub4,
+                                     batch[subset * 10:], "class1", 10)
+        line, _ = generator_checks(gen, x, 2, chain_counts("toy", 1),
+                                   "workflow_toy_prototype_chunk_vs_plain")
+        emit({**line, "card": card})
+        report = os.path.join(tmp, "recovery.json")
+        rec_chunks = 2 * (1 + 3)           # per class: the fitted U and 3 random Us
+        launches["toy_recovery"] = workflow_stage(
+            "workflow_toy_recovery", card, lambda: concept_recovery_experiment.main(
+                ["--out", report, "--per-class", str(WF_REC_PER_CLASS),
+                 "--epochs", str(WF_REC_EPOCHS), "--steps", str(WF_REC_STEPS), *dev]),
+            chain_counts("toy", rec_chunks), per_class=WF_REC_PER_CLASS,
+            epochs=WF_REC_EPOCHS, steps=WF_REC_STEPS)
+        rec = json.load(open(report))
+        if not all(np.isfinite([v for k, v in e.items() if k != "assignment"]).all()
+                   for e in rec["classes"].values()):
+            raise AssertionError(f"recovery report not finite: {rec}")
+        emit({"phase": "workflow_toy_recovery_report", "card": card, **rec})
+        del gen, x
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ 6s
+        corpus, rd = os.path.join(tmp, "corpus"), os.path.join(tmp, "gtzan_synth")
+        launches["6s_generate"] = workflow_stage(
+            "workflow_6s_generate", card, lambda: generate_gtzan_synth.main(
+                ["--out", corpus, "--songs-per-genre", str(WF_SONGS), "--multi-concept",
+                 "--seed", "0", *dev]), {}, songs_per_genre=WF_SONGS)
+        launches["6s_train"] = workflow_stage(
+            "workflow_6s_train", card, lambda: train.main(
+                ["--case", "gtzan_6s", "--data", corpus, "--out", os.path.join(rd, "model"),
+                 "--epochs", "1", *dev]), {}, epochs=1)
+        stages = ("extract", "optimize", "eval", "prototypes")
+        wf = ["--data", corpus, "--run-dir", rd, "--layers", "33", "--num-clips", str(WF_CLIPS),
+              "--steps", str(WF_6S_STEPS), "--runs", "1", "--samples-per-class", str(WF_6S_SPC),
+              *dev]
+        cfg6 = experiment_config(None, "gtzan_6s")
+        chunks6 = eval_chunks(WF_6S_SPC * cfg6.eval.num_chunks, 10)
+        expected = {"extract": {}, "optimize": {}, "eval": chain_counts("gtzan_6s", chunks6),
+                    "prototypes": chain_counts("gtzan_6s", 1)}
+        for st in stages:
+            launches[f"6s_{st}"] = workflow_stage(
+                f"workflow_6s_{st}", card, lambda st=st: run_gtzan_synth_workflow.main(
+                    [*wf, "--skip", *(s for s in stages if s != st)]), expected[st])
+        for cls in ("blues", "pop"):
+            arr = np.load(os.path.join(rd, "drsa_data", cls, "dataset_layer33.npz"))
+            if arr["activations"].shape != (WF_CLIPS * 20, cfg6.model.n_filters[-1]):
+                raise AssertionError(f"6s extraction {cls}: {arr['activations'].shape}")
+        sub6 = os.path.join(rd, "subspaces", f"{K}_concepts")
+        emit({"phase": "workflow_6s_runs", "card": card, **check_runs(sub6, "6s runs")})
+        emit({"phase": "workflow_6s_eval_files", "card": card,
+              **check_eval(os.path.join(rd, "eval"), "6s eval"), "generator_chunks": chunks6})
+        son6 = os.path.join(rd, "sonified")
+        emit({"phase": "workflow_6s_sonify_files", "card": card,
+              **check_sonified(son6, "6s sonify", 360 * 255)})
+        # the prototype chunk on the trained 6s weights: the walk is
+        # ill-conditioned after training (phase 13), so held as there
+        subset = json.load(open(os.path.join(son6, "prototypes.json")))["subset_index"]
+        batch, _, _ = get_songs_drsa(corpus, "pop", excluded_folds=[cfg6.train.validation_fold],
+                                     num_chunks=cfg6.drsa.chunks_per_song, case="gtzan_6s",
+                                     device="cuda")
+        gen, x = prototype_generator(cfg6, os.path.join(rd, "model"), sub6, batch[subset * 10:],
+                                     "pop", 33)
+        emit({"phase": "workflow_6s_prototype_chunk_vs_plain", "card": card, "batch": len(x),
+              "conditioning": generator_conditioning(gen, x)})
     return launches
 
 
@@ -2111,6 +2435,12 @@ def main() -> int:
     emit({"phase": "train_then_explain_total", "card": card, "seconds": time.time() - t0})
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------- the workflow CLIs
+    t0 = time.time()
+    workflowed = workflow(card)
+    emit({"phase": "workflow_total", "card": card, "seconds": time.time() - t0})
+    torch.cuda.empty_cache()
+
     kernels = []
     for name in SOURCES:
         paths = {}
@@ -2147,8 +2477,9 @@ def main() -> int:
         row["fit_then_serve_launches"] = {p: c[name] for p, c in fitted.items()}
         row["evaluate_launches"] = {p: c[name] for p, c in evaluated.items()}
         row["train_then_explain_launches"] = {p: c[name] for p, c in trained.items()}
+        row["workflow_launches"] = {p: c[name] for p, c in workflowed.items()}
         row["launches"] += sum(c[name] for c in (*fitted.values(), *evaluated.values(),
-                                                 *trained.values()))
+                                                 *trained.values(), *workflowed.values()))
         if name == "logmel":
             row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
             row["library_ms"] = sum(v["library_ms"] for v in paths.values())

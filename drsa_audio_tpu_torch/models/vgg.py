@@ -114,13 +114,21 @@ BN_EPS = 1e-5            # torch's BatchNorm default, as the JAX package
 BN_MOMENTUM = 0.1
 
 
-def init_params(specs: Sequence[LayerSpec], seed: int, device=None) -> dict:
-    """Kaiming-uniform init with ReLU gain (the JAX package's 'he' scheme),
-    drawn from ``np.random.default_rng(seed)``; BatchNorm layers start at
-    scale 1, bias 0, mean 0, var 1. On ``device`` (``resolve_device``: CUDA
-    unless named)."""
+def init_params(specs: Sequence[LayerSpec], seed: int, device=None, scheme: str = "he") -> dict:
+    """Kaiming-uniform init drawn from ``np.random.default_rng(seed)``;
+    BatchNorm layers start at scale 1, bias 0, mean 0, var 1. On ``device``
+    (``resolve_device``: CUDA unless named).
+
+    scheme='he' (default): ReLU gain sqrt(2), the weight bound
+    sqrt(6 / fan_in), which keeps the activation scale through deep stacks
+    without BatchNorm. scheme='torch': torch's Conv2d/Linear default
+    (a=sqrt(5): gain^2 = 2/6, the bound sqrt(1 / fan_in)). The bias bound is
+    1 / sqrt(fan_in) under both, as the JAX package's schemes give."""
     from drsa_audio_tpu_torch.utils.device import resolve_device
+    if scheme not in ("he", "torch"):
+        raise ValueError(f"init_params: unknown scheme {scheme!r}")
     device = resolve_device(device, "init_params")
+    gain_sq = 2.0 if scheme == "he" else 2.0 / 6.0
     rng = np.random.default_rng(seed)
     params: dict = {}
 
@@ -134,12 +142,12 @@ def init_params(specs: Sequence[LayerSpec], seed: int, device=None) -> dict:
             ci, co = spec.config["in_ch"], spec.config["out_ch"]
             fan_in = ci * kh * kw
             params[spec.name] = {
-                "weight": uniform((co, ci, kh, kw), np.sqrt(6.0 / fan_in)),
+                "weight": uniform((co, ci, kh, kw), np.sqrt(3.0 * gain_sq / fan_in)),
                 "bias": uniform((co,), 1.0 / np.sqrt(fan_in))}
         elif spec.kind == "linear":
             fi, fo = spec.config["in_f"], spec.config["out_f"]
             params[spec.name] = {
-                "weight": uniform((fo, fi), np.sqrt(6.0 / fi)),
+                "weight": uniform((fo, fi), np.sqrt(3.0 * gain_sq / fi)),
                 "bias": uniform((fo,), 1.0 / np.sqrt(fi))}
         elif spec.kind in ("batchnorm", "batchnorm1d"):
             ch = spec.config["ch"]
@@ -149,6 +157,14 @@ def init_params(specs: Sequence[LayerSpec], seed: int, device=None) -> dict:
                 "running_mean": torch.zeros(ch, device=device),
                 "running_var": torch.ones(ch, device=device)}
     return params
+
+
+def cast_params(params: dict, dtype) -> dict:
+    """Conv and linear weights and biases cast to ``dtype`` (BatchNorm
+    entries kept as they are), for mixed-precision inference. The explain
+    path keeps float32; no path of the port calls this."""
+    return {name: ({k: v.to(dtype) for k, v in p.items()} if "running_mean" not in p else p)
+            for name, p in params.items()}
 
 
 def conv2d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
@@ -399,6 +415,22 @@ class VGG(nn.Module):
         with torch.no_grad():
             set_running_stats(params, new)
         return logits
+
+
+def conv_out_shape(input_size, pool_kernels, conv_kernel=(3, 3),
+                   out_filters: int = 128, padding="same", stride: int = 1,
+                   block_depth: int = 2) -> int:
+    """Analytic flattened feature count for architecture grid search
+    (reference get_out_shape, create_model.py:174-211)."""
+    pad = 1 if padding == "same" else 0
+    h, w = input_size
+    for ph, pw in pool_kernels:
+        for _ in range(block_depth):
+            h = (h - conv_kernel[0] + 2 * pad) // stride + 1
+            w = (w - conv_kernel[1] + 2 * pad) // stride + 1
+        h = (h - (ph - 1) - 1) // ph + 1
+        w = (w - (pw - 1) - 1) // pw + 1
+    return int(h * w * out_filters)
 
 
 def gtzan_6s_config() -> VGGConfig:

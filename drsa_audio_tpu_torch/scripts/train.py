@@ -34,17 +34,10 @@ def main(argv=None) -> None:
         fit, gtzan_pipeline, toy_augment_and_mel, toy_pipeline, valid_chunks_to_mels)
     from drsa_audio_tpu_torch.models.vgg import build_layer_specs, init_params
     from drsa_audio_tpu_torch.ops.frontend import FrontendConfig
-    from drsa_audio_tpu_torch.utils.config import ExperimentConfig
+    from drsa_audio_tpu_torch.scripts.common import experiment_config
     from drsa_audio_tpu_torch.utils.device import resolve_device
 
-    if args.config:
-        cfg = ExperimentConfig.load(args.config)
-    elif args.case == "toy":
-        cfg = ExperimentConfig.toy_default()
-    elif args.case == "gtzan_6s":
-        cfg = ExperimentConfig.gtzan_6s_default()
-    else:
-        cfg = ExperimentConfig()
+    cfg = experiment_config(args.config, args.case)
     if args.data:
         cfg.data_path = args.data
     if args.out:

@@ -898,3 +898,41 @@ def test_train_step_on_card_matches_cpu(cuda, model):
         # an update moves a param by the learning rate times its gradient
         torch.testing.assert_close(pg[name][0], v, rtol=1e-4,
                                    atol=1e-5 * v.abs().max().item() + 1e-3 * atol, msg=name)
+
+
+def test_toy_cli_chain_on_card_launches_the_chain(cuda, tmp_path):
+    """The toy workflow's CLIs on the card at tests/test_torch_cli.py's
+    sizes (12 clips a class, 2 epochs, K=2 at layer 10, 20 steps x 2 runs):
+    the evaluation's 12 HeatmapGenerator chunks (2 DRSA, 6 random, 4
+    interclass; 3 clips each) launch chain_block 3 times and first_layer
+    once each, the prototype stage's one chunk the same; U orthogonal to
+    1e-4 and the AUPCs finite."""
+    from drsa_audio_tpu_torch.scripts import (
+        extract_drsa_data, generate_toydata, optimize_subspaces, run_concept_eval,
+        sonify_prototypes, train)
+    from drsa_audio_tpu_torch.utils.evaluation import load_projection_matrix
+    d = {k: str(tmp_path / k) for k in ("data", "model", "drsa", "sub", "eval", "son")}
+    generate_toydata.main(["--out", d["data"], "--per-class", "12", "--seed", "1",
+                           "--device", "cuda"])
+    train.main(["--case", "toy", "--data", d["data"], "--out", d["model"], "--epochs", "2",
+                "--batch-size", "8"])
+    model = ["--case", "toy", "--data", d["data"], "--checkpoint", d["model"]]
+    extract_drsa_data.main([*model, "--out", d["drsa"], "--layers", "10",
+                            "--num-locations", "8"])
+    optimize_subspaces.main(["--data", d["drsa"], "--out", f"{d['sub']}/2_concepts",
+                             "--num-concepts", "2", "--steps", "20", "--runs", "2"])
+    U = load_projection_matrix(f"{d['sub']}/2_concepts/class1/layer10")
+    assert np.abs(U.T @ U - np.eye(16)).max() <= 1e-4
+    chain.reset_launches()
+    run_concept_eval.main([*model, "--subspaces", d["sub"], "--out", d["eval"],
+                           "--num-concepts", "2", "--layers", "10", "--algorithms", "drsa",
+                           "random", "--interclass-layer", "10"])
+    assert chain.LAUNCHES == {"chain_block": 36, "first_layer": 12, "first_block_deep": 0,
+                              "merged_tail": 0}
+    assert np.isfinite(np.load(f"{d['eval']}/drsa_aupcs_k2_layer10.npy")).all()
+    chain.reset_launches()
+    sonify_prototypes.main([*model, "--subspaces", f"{d['sub']}/2_concepts", "--out", d["son"],
+                            "--sample-class", "class1", "--layer", "10", "--num-concepts", "2",
+                            "--subset-size", "4"])
+    assert chain.LAUNCHES == {"chain_block": 3, "first_layer": 1, "first_block_deep": 0,
+                              "merged_tail": 0}

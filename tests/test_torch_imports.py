@@ -27,7 +27,13 @@ def test_port_imports_without_jax():
               "xai.eval.metrics", "xai.eval.stats", "xai.eval.concept_recovery",
               "xai.eval.flipping", "xai.eval.harness", "ops.stft", "xai.sonify.mel2audio",
               "utils.config", "models.experimental", "ops.augment", "models.train",
-              "data.datasets", "scripts.train"):
+              "data.datasets", "scripts.train", "utils.utilities", "utils.profiling",
+              "utils.visualization", "utils.convert", "scripts.common",
+              "scripts.generate_toydata", "scripts.generate_gtzan_synth",
+              "scripts.extract_drsa_data", "scripts.optimize_subspaces",
+              "scripts.run_concept_eval", "scripts.sonify_prototypes",
+              "scripts.demo_toy_workflow", "scripts.concept_recovery_experiment",
+              "scripts.run_gtzan_synth_workflow"):
         assert "drsa_audio_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
