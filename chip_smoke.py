@@ -171,6 +171,40 @@
    as phase 13 holds the trained 6s model (within 10x the plain walk's own
    spread). Depth is cut (clips, epochs, steps, runs), never width: the
    cuts are listed in ``workflow``'s docstring.
+15. Scale-out (drsa_audio_tpu_torch.parallel), one JSON line a stage
+   (scaleout_*: host clock with the device synchronised, launch counts).
+   15a, in this process: an NCCL group of one (distributed_init with a
+   file:// store under build/scaleout/, destroyed after), cuDNN held to
+   deterministic algorithms; each call through the mesh with every launch
+   counter set to 0 just before and read just after, then the same call
+   without a mesh, which must give the same bits (timed on the first call
+   and on a second): sharded_explain_pipeline on 3s waveforms, b=256
+   (chain_block 3, first_layer 1), and on 6s with BatchNorm folded, b=64,
+   layer 33 (chain_block 4, first_block_deep 1); ExplainerService(mesh=),
+   b=32 (3, 1); make_sharded_train_step, 3s, b=128 mels, one step (loss,
+   gradients and params); sharded_drsa_extraction, 3s layer 10, 64 clips x
+   20 locations (against preprocess_data with the same clip_seeds). 15b:
+   two ranks spawned on the one card (parallel.launch, gloo on CUDA
+   tensors: NCCL takes one rank a card), each loading the kernels from the
+   build cache (none rebuilt), params replicated from rank 0: the 3s
+   pipeline on 64 waveforms, each rank's launches read around its call
+   (chain_block 3, first_layer 1 each), its 32 rows against the
+   single-process program on those rows (rtol 1e-4, atol 1e-5 * max) and
+   the gathered standard maps against the single-process b=64 run (rtol
+   1e-3, atol 1e-4 * max); one sharded train step of 3s at b=32 against
+   the single-process step on the whole batch (phase 13's card tolerance,
+   step_card_vs_cpu's, on the updated params: 2e-3 of max|grad|); the 6s
+   step with BatchNorm at b=16 in float64 against the single-process
+   float64 step (every gradient, param and running statistic to 1e-9 of
+   its max), and in float32 within 4x (F32_SPREAD) the single-process
+   float32 step's own distance from the float64 step (the float32 step
+   from these clips is ill-conditioned: another rounding moves its
+   gradients by about 1e-2 of their max), its loss at rtol 1e-5; 3 DRSA
+   restarts (100 steps, phase 15a's extracted vectors) split 2 + 1 over the
+   ranks against drsa_fit_batched alone (U orthogonal to 1e-4, objectives
+   at rtol 2e-2). Each rank's train steps: the second from the same init is
+   timed, the first pays the process's one-time work. A failing rank fails
+   the phase.
 
 The kernels line gives, for each kernel, its numbers per path under
 "paths" (3s, 3s_merged and 3s_shared at batch 256, 6s at batch 64,
@@ -178,9 +212,10 @@ The kernels line gives, for each kernel, its numbers per path under
 frontend_3s, frontend_6s and frontend_toy for the log-mel kernel at the
 batches of 10) and at its top level their sums over the paths (launches:
 the counts of the served requests of 2, 5m, 6 and 9, the calls of 10 and
-the counted runs of 11, 12, 13 and 14, also apart under
-fit_then_serve_launches, evaluate_launches, train_then_explain_launches and
-workflow_launches (by CLI stage);
+the counted runs of 11, 12, 13, 14 and 15, also apart under
+fit_then_serve_launches, evaluate_launches, train_then_explain_launches,
+workflow_launches (by CLI stage) and scaleout_launches (phase 15's counted
+calls, 15b by rank);
 max_abs_err: the largest). The log-mel row also carries the matmul-DFT
 logmel's time, and as library_ms the port's logmel(use_matmul_dft=False)
 (cuFFT through torch.fft.rfft), which the port never calls on a path.
@@ -1584,6 +1619,85 @@ def mels_card_vs_cpu(name: str, got, want, plain) -> dict:
             "power_max_abs_err_over_peak": ((pg - pw).abs() / peak).max().item()}
 
 
+def _as_cpu(a):
+    import torch
+    return a.detach().cpu() if torch.is_tensor(a) else torch.as_tensor(a)
+
+
+def cancelled_biases(specs) -> set:
+    """The biases that a BatchNorm follows: it cancels them, so their
+    gradient is zero but for round-off."""
+    return {f"{a.name}.bias" for a, b in zip(specs, specs[1:])
+            if a.kind in ("conv", "linear") and b.kind.startswith("batchnorm")}
+
+
+def step_atols(specs, grads: dict, factor: float, other: float | None = None) -> dict:
+    """Per tensor, the atol of a train step's gradient against a reference
+    step's ``grads``: ``factor`` * max|g| for the conv and BatchNorm
+    tensors (summed over many positions), ``other`` (``factor`` where None)
+    * max|g| for the rest, and ``factor`` * the model's largest |gradient|
+    for a bias that BatchNorm follows (``cancelled_biases``)."""
+    scale = {k: _as_cpu(g).abs().max().item() for k, g in grads.items()}
+    top = max(scale.values())
+    cancelled = cancelled_biases(specs)
+    summed = {f"{s.name}.{k}" for s in specs if s.kind in ("conv", "batchnorm")
+              for k in ("weight", "bias")}
+    return {k: factor * top if k in cancelled
+            else (factor if other is None or k in summed else other) * m
+            for k, m in scale.items()}
+
+
+def hold_step(name: str, got: dict, want: dict, atols: dict, lr: float,
+              hold_grads: bool) -> dict:
+    """A train step ``got`` ({"loss", "grads", "after"}, tensors or numpy)
+    against a reference step ``want``: the loss at rtol 1e-5; with
+    ``hold_grads`` each gradient at rtol 1e-4 and its ``atols`` entry
+    (``step_atols``); each tensor after the step (params and BatchNorm
+    statistics) at rtol 1e-4, atol 1e-5 * its max|ref| plus, for a param,
+    ``lr`` times its gradient's atol (an update moves a param by lr * its
+    gradient). Returns the largest errors."""
+    loss, ref = float(got["loss"]), float(want["loss"])
+    rel = abs(loss - ref) / abs(ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{name}: loss {loss}, reference {ref} (rel err {rel})")
+    out = {"loss_rel_err": rel}
+    if hold_grads:
+        out["grad_max_abs_err"] = max(
+            check_close(f"{name} gradient {k}", _as_cpu(got["grads"][k]), _as_cpu(g),
+                        atol=atols[k]) for k, g in want["grads"].items())
+    out["param_max_abs_err_after_step"] = max(
+        check_close(f"{name} {k} after the step", _as_cpu(got["after"][k]), _as_cpu(v),
+                    atol=1e-5 * _as_cpu(v).abs().max().item() + lr * atols.get(k, 0.0))
+        for k, v in want["after"].items())
+    return out
+
+
+def step_distance(got: dict, want: dict, specs) -> dict:
+    """How far a train step ``got`` lies from ``want`` (``hold_step``'s
+    dicts): the loss's relative error, and the largest difference of a
+    gradient and of a tensor after the step, each as a share of that
+    tensor's max|want| (the biases that BatchNorm follows apart, as a share
+    of the model's largest |gradient|: theirs is zero but for round-off)."""
+    def f64(a):
+        return _as_cpu(a).double()
+
+    def worst(part, keys, scale):
+        return max(((f64(got[part][k]) - f64(want[part][k])).abs().max().item()
+                    / max(scale(k), 1e-30), k) for k in keys) if keys else (0.0, None)
+
+    grads = want["grads"]
+    cancelled = cancelled_biases(specs)
+    top = max(f64(g).abs().max().item() for g in grads.values())
+    loss, ref = float(got["loss"]), float(want["loss"])
+    return {"loss_rel_err": abs(loss - ref) / abs(ref),
+            "grad": worst("grads", [k for k in grads if k not in cancelled],
+                          lambda k: f64(grads[k]).abs().max().item()),
+            "cancelled_bias_grad": worst("grads", [k for k in grads if k in cancelled],
+                                         lambda k: top),
+            "after": worst("after", list(want["after"]),
+                           lambda k: f64(want["after"][k]).abs().max().item())}
+
+
 def step_card_vs_cpu(name: str, specs, mels, labels, has_bn: bool) -> dict:
     """One train step from the same mels, params (init seed 0) and keep
     masks on the card and on the CPU (a host_reference): loss rtol 1e-5;
@@ -1607,11 +1721,6 @@ def step_card_vs_cpu(name: str, specs, mels, labels, has_bn: bool) -> dict:
     from drsa_audio_tpu_torch.models.train import make_optimizer, make_train_step, split_trainable
     from drsa_audio_tpu_torch.models.vgg import draw_keep_masks, init_params
     masks = draw_keep_masks(specs, mels.shape[0], torch.Generator().manual_seed(6))
-    cancelled = {f"{a.name}.bias" for a, b in zip(specs, specs[1:])
-                 if a.kind in ("conv", "linear") and b.kind.startswith("batchnorm")}
-    summed = {f"{s.name}.{k}" for s in specs if s.kind in ("conv", "batchnorm")
-              for k in ("weight", "bias")}
-    factor, other = (1e-2, 1e-4) if has_bn else (2e-3, 1e-5)
 
     def run(dev):
         params = init_params(specs, 0, device=dev)
@@ -1627,30 +1736,14 @@ def step_card_vs_cpu(name: str, specs, mels, labels, has_bn: bool) -> dict:
     flat, runs = host_reference(f"{name} CPU step",
                                 lambda: (lambda r: (r[0], *r[1].values(), *r[2].values()))(
                                     run("cpu")))
-    want_loss = flat[0]
-    want_grads = dict(zip(grads, flat[1:1 + len(grads)]))
-    want_after = dict(zip(after, flat[1 + len(grads):]))
-    rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-    if not rel <= 1e-5:
-        raise AssertionError(f"{name}: loss {loss.item()} on the card, {want_loss.item()} on "
-                             f"the CPU (rel err {rel})")
-    top = max(g.abs().max().item() for g in want_grads.values())
-
-    def grad_atol(k, g):
-        if k in cancelled:
-            return factor * top
-        return (factor if k in summed else other) * g.abs().max().item()
-    grad_err = max(check_close(f"{name} gradient {k}", grads[k], g, atol=grad_atol(k, g))
-                   for k, g in want_grads.items())
-
-    def param_atol(k, v):           # an update moves a param by lr * its gradient
-        atol = 1e-5 * v.abs().max().item()
-        return atol + LR * grad_atol(k, want_grads[k]) if k in want_grads else atol
-    param_err = max(check_close(f"{name} {k} after the step", after[k], v, atol=param_atol(k, v))
-                    for k, v in want_after.items())
-    return {"loss_card": loss.item(), "loss_cpu": want_loss.item(), "loss_rel_err": rel,
-            "grad_max_abs_err": grad_err, "grad_max_abs": top,
-            "param_max_abs_err_after_step": param_err, "cpu_reference_runs": runs}
+    want = {"loss": flat[0], "grads": dict(zip(grads, flat[1:1 + len(grads)])),
+            "after": dict(zip(after, flat[1 + len(grads):]))}
+    atols = step_atols(specs, want["grads"], *((1e-2, 1e-4) if has_bn else (2e-3, 1e-5)))
+    held = hold_step(name, {"loss": loss, "grads": grads, "after": after}, want, atols, LR,
+                     hold_grads=True)
+    return {"loss_card": loss.item(), "loss_cpu": want["loss"].item(), **held,
+            "grad_max_abs": max(g.abs().max().item() for g in want["grads"].values()),
+            "cpu_reference_runs": runs}
 
 
 def resume_bit_equal(card: str, specs, pipeline, feed, tmp: str) -> dict:
@@ -2217,6 +2310,376 @@ def workflow(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 15
+
+B_SCALE_3S, B_SCALE_6S, B_SCALE_SERVE, B_SCALE_TRAIN, B_SCALE_EXTRACT = 256, 64, 32, 128, 64
+B_RANKS_3S, B_RANKS_TRAIN_3S, B_RANKS_TRAIN_6S, RESTART_STEPS = 64, 32, 16, 100
+SCALE_LR = 1e-2
+# how far a rank's float32 6s BatchNorm step may lie from the float64 step,
+# in units of the single-process float32 step's own distance from it
+F32_SPREAD = 4
+
+
+def synced(run):
+    """(what ``run()`` returned, its seconds on the host clock with the
+    device synchronised before and after)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return bool(np.array_equal(a, b))
+
+
+def world1_stage(name: str, card: str, sharded_run, plain_run, expected: dict,
+                 counts: dict, **beside) -> None:
+    """Phase 15a, one stage: ``sharded_run()`` (the mesh's call) with every
+    launch counter set to 0 just before and read just after (they must be
+    ``expected``); then ``plain_run()``, the same call without a mesh,
+    whose result must be the same bits. Each is timed on that first call and
+    on a second."""
+    (got, first), counts[name] = counted(name, lambda: synced(sharded_run), expected)
+    want, plain_first = synced(plain_run)
+    if not same_bits(got, want):
+        raise AssertionError(f"{name}: the mesh's result is not the unsharded call's bits")
+    del got, want
+    seconds, plain_seconds = synced(sharded_run)[1], synced(plain_run)[1]
+    emit({"phase": name, "card": card, "world": 1, "backend": "nccl", "seconds": seconds,
+          "unsharded_seconds": plain_seconds, "first_call_seconds": first,
+          "unsharded_first_call_seconds": plain_first, "launches": counts[name],
+          "bit_equal": True, **beside})
+
+
+def train_state(specs, has_bn: bool, device):
+    """init_params (seed 0), with seeded BatchNorm statistics where the
+    model has BatchNorm."""
+    from drsa_audio_tpu_torch.models.vgg import init_params
+    params = init_params(specs, seed=0, device=device)
+    return random_bn_stats(params, seed=1) if has_bn else params
+
+
+def one_step(specs, params, mels, labels, dropout, has_bn: bool, mesh=None, dtype=None):
+    """One train step (SGD at SCALE_LR), sharded over ``mesh`` where given,
+    in ``dtype`` where given (params and mels converted): {"loss", "acc",
+    "grads": {tensor: gradient}, "after": {tensor: value after}}."""
+    import torch
+    from drsa_audio_tpu_torch.models.train import (
+        make_optimizer, make_train_step, split_trainable)
+    from drsa_audio_tpu_torch.parallel.sharding import make_sharded_train_step
+    if dtype is not None:
+        params = {n: {k: v.to(dtype) for k, v in p.items()} for n, p in params.items()}
+        mels = torch.as_tensor(mels).to(dtype)
+    trainable, _ = split_trainable(params)
+    opt = make_optimizer(trainable, SCALE_LR)
+    device = next(iter(trainable.values()))["weight"].device
+    draws = {"dropout": {k: torch.as_tensor(v, device=device) for k, v in dropout.items()}}
+    step = (make_train_step(specs, opt, None, has_bn) if mesh is None
+            else make_sharded_train_step(specs, opt, mesh, has_bn=has_bn))
+    if mesh is None:
+        mels = torch.as_tensor(mels, device=device)
+        labels = torch.as_tensor(labels, device=device)
+    loss, acc = step(params, mels, labels, draws)
+    return {"loss": loss, "acc": acc,
+            "grads": {f"{n}.{k}": v.grad for n, p in trainable.items() for k, v in p.items()},
+            "after": {f"{n}.{k}": v.detach() for n, p in params.items() for k, v in p.items()}}
+
+
+def scaleout_rank(mesh, data: dict) -> dict:
+    """Phase 15b, one of two ranks spawned on the one card
+    (parallel.launch, gloo on CUDA tensors): the 3s explain pipeline on
+    B_RANKS_3S waveforms (its rows also through the single-process program
+    here), one sharded train step of 3s and of 6s with BatchNorm, and the
+    DRSA restarts split over the ranks. Returns numpy."""
+    import torch
+    import torch.distributed as dist
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.models.vgg import (
+        build_layer_specs, gtzan_3s_config, gtzan_6s_config, init_params)
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+    from drsa_audio_tpu_torch.parallel import sharding as tsh
+    from drsa_audio_tpu_torch.utils import nvcc
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.explain import class_composite, subspace_heatmaps
+
+    prebuilt = {n: nvcc.library_path(n).exists() for n in ("chain_block", "first_layer")}
+    device = tsh.mesh_device(mesh)
+    out = {"rank": mesh.get_local_rank(), "backend": dist.get_backend(), "device": str(device),
+           "kernels_prebuilt": prebuilt}
+
+    specs = build_layer_specs(gtzan_3s_config())
+    params = tsh.replicate(init_params(specs, seed=0, device=device), mesh)
+    sp = insert_projection(specs, 10, torch.as_tensor(data["U"], device=device), K,
+                           input_size=(128, 128))
+    composite = class_composite(LRP_NAME_MAP_GTZAN, K)
+    cfg = FrontendConfig.for_case("gtzan")
+    explain = tsh.sharded_explain_pipeline(sp, params, composite, mesh, K, class_idx=0,
+                                           frontend_config=cfg)
+    explain(data["wavs"][:4])                   # first call: the kernels load
+    reset_counts()
+    heat, seconds = synced(lambda: explain(data["wavs"]))
+    launches = launch_counts()
+    local = tsh.shard_batch(data["wavs"], mesh)
+    with torch.inference_mode():
+        mine = subspace_heatmaps(sp, params, logmel(peak_normalize(local.rows), cfg)[:, None],
+                                 composite, K, class_idx=0)[0]
+    rows = slice(local.start, local.start + len(local.rows))
+    out["pipeline"] = {"seconds": seconds, "launches": launches, "rows": len(local.rows),
+                       "own_rows_max_abs_err": check_close(
+                           "rank's rows against the single-process program", heat[rows], mine),
+                       "standard": heat[:, 0].cpu().numpy()}
+
+    for name, cfg_fn, has_bn, dtype in (("train_3s", gtzan_3s_config, False, None),
+                                        ("train_6s_bn", gtzan_6s_config, True, None),
+                                        ("train_6s_bn_f64", gtzan_6s_config, True,
+                                         torch.float64)):
+        specs_t = build_layer_specs(cfg_fn())
+        d = data[name.removesuffix("_f64")]
+
+        # the process's first step pays for one-time work (its first
+        # optimizer imports torch._dynamo, cuDNN's first backward): the
+        # second, from the same init, is the one timed and compared
+        for _ in range(2):
+            params_t = tsh.replicate(train_state(specs_t, has_bn, device), mesh)
+            step, seconds = synced(lambda: one_step(specs_t, params_t, d["mels"], d["labels"],
+                                                    d["dropout"], has_bn, mesh, dtype))
+        out[name] = {"seconds": seconds, "loss": step["loss"].item(), "acc": step["acc"].item(),
+                     "grads": {k: v.cpu().numpy() for k, v in step["grads"].items()},
+                     "after": {k: v.cpu().numpy() for k, v in step["after"].items()}}
+        del step, params_t
+
+    res, seconds = synced(lambda: tsh.sharded_drsa_restarts(
+        data["U0"], data["act"], data["ctx"], K, mesh, steps=RESTART_STEPS))
+    out["drsa"] = {"seconds": seconds, "U": res.U.cpu().numpy(),
+                   "objectives": res.objectives.cpu().numpy()}
+    return out
+
+
+def scaleout(card: str) -> dict:
+    """Phase 15: the parallel module. 15a in this process, an NCCL group
+    of one (file store under build/): each sharded call bit-equal to the
+    same call without a mesh, cuDNN held to deterministic algorithms. 15b:
+    two ranks spawned on the one card (gloo, CUDA tensors), each against the
+    single-process programs. Returns {stage: launch counts}."""
+    import torch
+    import torch.distributed as dist
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.models.vgg import (
+        build_layer_specs, draw_keep_masks, fold_batchnorm, gtzan_3s_config, gtzan_6s_config,
+        init_params)
+    from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+    from drsa_audio_tpu_torch.parallel import sharding as tsh
+    from drsa_audio_tpu_torch.parallel.launch import launch
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils import nvcc
+    from drsa_audio_tpu_torch.utils.constants import (
+        LRP_NAME_MAP_GTZAN, LRP_NAME_MAP_GTZAN_6S)
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import drsa_fit_batched, init_runs
+    from drsa_audio_tpu_torch.xai.drsa.preprocessing import (
+        draw_clip_seeds, normalize_vectors, preprocess_data)
+    from drsa_audio_tpu_torch.xai.explain import class_composite, subspace_heatmaps
+    from drsa_audio_tpu_torch.xai.lrp.engine import Composite
+
+    counts = {}
+    rng = np.random.default_rng(15)
+    cfg3, cfg6 = FrontendConfig.for_case("gtzan"), FrontendConfig.for_case("gtzan_6s")
+    specs3 = build_layer_specs(gtzan_3s_config())
+    params3 = init_params(specs3, seed=0, device="cuda")
+    U3 = signed_permutation(rng, 64)
+    sp3 = insert_projection(specs3, 10, U3, K, input_size=(128, 128))
+    comp3 = class_composite(LRP_NAME_MAP_GTZAN, K)
+    specs6_bn = build_layer_specs(gtzan_6s_config())
+    specs6, params6 = fold_batchnorm(specs6_bn, train_state(specs6_bn, True, "cuda"))
+    sp6 = insert_projection(specs6, 33, signed_permutation(rng, 128), K, input_size=(128, 256))
+    comp6 = class_composite(LRP_NAME_MAP_GTZAN_6S, K)
+
+    def unsharded(sp, params, comp, cfg, wavs):
+        with torch.inference_mode():
+            mels = logmel(peak_normalize(torch.as_tensor(wavs, device="cuda")), cfg)[:, None]
+            return subspace_heatmaps(sp, params, mels, comp, K, class_idx=0)[0]
+
+    store = os.path.join(os.path.dirname(nvcc.BUILD_DIR), "scaleout", f"store-{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    tsh.distributed_init(f"file://{store}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"15a: backend {dist.get_backend()}, not nccl")
+        mesh = tsh.get_mesh(1)
+        _, first = synced(lambda: dist.all_reduce(torch.ones(1, device="cuda")))
+        emit({"phase": "scaleout_w1_init", "card": card, "world": 1, "backend": "nccl",
+              "seconds": time.perf_counter() - t_phase, "first_all_reduce_seconds": first})
+        w3 = (rng.standard_normal((B_SCALE_3S, 48000)) * 0.3).astype(np.float32)
+        world1_stage("scaleout_w1_3s_pipeline", card,
+                     lambda: tsh.sharded_explain_pipeline(sp3, params3, comp3, mesh, K, 0,
+                                                          frontend_config=cfg3)(w3),
+                     lambda: unsharded(sp3, params3, comp3, cfg3, w3),
+                     {"chain_block": 3, "first_layer": 1}, counts, batch=B_SCALE_3S)
+        w6 = (rng.standard_normal((B_SCALE_6S, 96000)) * 0.3).astype(np.float32)
+        world1_stage("scaleout_w1_6s_pipeline", card,
+                     lambda: tsh.sharded_explain_pipeline(sp6, params6, comp6, mesh, K, 0,
+                                                          frontend_config=cfg6)(w6),
+                     lambda: unsharded(sp6, params6, comp6, cfg6, w6),
+                     {"chain_block": 4, "first_block_deep": 1}, counts, batch=B_SCALE_6S,
+                     layer=33)
+        kw = dict(Us={"blues": U3.cpu().numpy()}, num_concepts=K, layer_idx=10, case="gtzan")
+        svc_mesh = ExplainerService(specs3, params3, LRP_NAME_MAP_GTZAN, mesh=mesh, **kw)
+        svc = ExplainerService(specs3, params3, LRP_NAME_MAP_GTZAN, **kw)
+        ws = w3[:B_SCALE_SERVE]
+        world1_stage("scaleout_w1_service", card, lambda: svc_mesh.explain(ws, "blues"),
+                     lambda: svc.explain(ws, "blues"), {"chain_block": 3, "first_layer": 1},
+                     counts, batch=B_SCALE_SERVE)
+        del svc, svc_mesh
+        mels = seeded_mels(21, B_SCALE_TRAIN, cfg3)
+        labels = torch.arange(B_SCALE_TRAIN, device="cuda") % 10
+        masks = draw_keep_masks(specs3, B_SCALE_TRAIN, torch.Generator().manual_seed(6))
+        replicas = [train_state(specs3, False, "cuda") for _ in range(2)]
+        world1_stage("scaleout_w1_train_3s", card,
+                     lambda: one_step(specs3, replicas[0], mels, labels, masks, False, mesh),
+                     lambda: one_step(specs3, replicas[1], mels, labels, masks, False), {},
+                     counts, batch=B_SCALE_TRAIN)
+        del replicas
+        mels_x = seeded_mels(22, B_SCALE_EXTRACT, cfg3)
+        comp = Composite.from_list(LRP_NAME_MAP_GTZAN)
+        world1_stage("scaleout_w1_extract_3s", card,
+                     lambda: tsh.sharded_drsa_extraction(specs3, params3, comp, mesh, 10, 0,
+                                                         N_LOCATIONS)(mels_x, 7),
+                     lambda: preprocess_data(specs3, params3, mels_x, comp, 10, 0, N_LOCATIONS,
+                                             clip_seeds=draw_clip_seeds(7, B_SCALE_EXTRACT)),
+                     {}, counts, batch=B_SCALE_EXTRACT, locations=N_LOCATIONS)
+        act, ctx = (normalize_vectors(v) for v in tsh.sharded_drsa_extraction(
+            specs3, params3, comp, mesh, 10, 0, N_LOCATIONS)(mels_x, 7))
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "scaleout_w1_total", "card": card, "seconds": time.perf_counter() - t_phase})
+
+    # ---------------------------------------------- 15b: two ranks, one card
+    data = {"U": U3.cpu().numpy(),
+            "wavs": (rng.standard_normal((B_RANKS_3S, 48000)) * 0.3).astype(np.float32),
+            "U0": init_runs(42, 64, 3), "act": act.cpu().numpy(), "ctx": ctx.cpu().numpy()}
+    for name, specs_t, cfg, b, seed in (("train_3s", specs3, cfg3, B_RANKS_TRAIN_3S, 23),
+                                        ("train_6s_bn", specs6_bn, cfg6, B_RANKS_TRAIN_6S, 24)):
+        masks = draw_keep_masks(specs_t, b, torch.Generator().manual_seed(seed))
+        data[name] = {"mels": seeded_mels(seed, b, cfg).cpu().numpy(),
+                      "labels": np.arange(b) % 10,
+                      "dropout": {k: v.numpy() for k, v in masks.items()}}
+    ranks, seconds = synced(lambda: launch(2, scaleout_rank, (data,), device="cuda",
+                                           backend="gloo", timeout_s=600))
+    emit({"phase": "scaleout_w2_launch", "card": card, "world": 2, "backend": "gloo",
+          "seconds": seconds, "ranks": [{k: r[k] for k in ("rank", "backend", "device",
+                                                             "kernels_prebuilt")}
+                                        for r in ranks]})
+    for r in ranks:
+        if r["backend"] != "gloo" or not all(r["kernels_prebuilt"].values()):
+            raise AssertionError(f"15b rank {r['rank']}: {r['backend']}, "
+                                 f"kernels prebuilt {r['kernels_prebuilt']}")
+
+    want = unsharded(sp3, params3, comp3, cfg3, data["wavs"])[:, 0].cpu()
+    expected = {k: {"chain_block": 3, "first_layer": 1}.get(k, 0) for k in SOURCES}
+    for r in ranks:
+        p = r["pipeline"]
+        if p["launches"] != expected or p["rows"] != B_RANKS_3S // 2:
+            raise AssertionError(f"15b rank {r['rank']}: launches {p['launches']}, "
+                                 f"rows {p['rows']}")
+        counts[f"scaleout_w2_3s_pipeline_rank{r['rank']}"] = p["launches"]
+    std = torch.as_tensor(ranks[0]["pipeline"]["standard"])
+    if not same_bits(ranks[1]["pipeline"]["standard"], ranks[0]["pipeline"]["standard"]):
+        raise AssertionError("15b: the ranks' gathered maps differ")
+    err = (std - want).abs()
+    bad = (err > 1e-4 * want.abs().max() + 1e-3 * want.abs()).sum().item()
+    if bad:
+        raise AssertionError(f"15b: {bad} standard-map elements off the single-process b=64 run")
+    emit({"phase": "scaleout_w2_3s_pipeline", "card": card, "world": 2, "batch": B_RANKS_3S,
+          "seconds": [r["pipeline"]["seconds"] for r in ranks],
+          "launches": [r["pipeline"]["launches"] for r in ranks],
+          "own_rows_max_abs_err": [r["pipeline"]["own_rows_max_abs_err"] for r in ranks],
+          "standard_max_abs_err_vs_b64": err.max().item()})
+
+    def single(name, specs_t, has_bn, dtype=None):
+        d = data[name]
+        return one_step(specs_t, train_state(specs_t, has_bn, "cuda"), d["mels"], d["labels"],
+                        d["dropout"], has_bn, dtype=dtype)
+
+    def train_line(name, **beside):
+        emit({"phase": f"scaleout_w2_{name}", "card": card, "world": 2,
+              "batch": len(data[name.removesuffix("_f64")]["labels"]),
+              "seconds": [r[name]["seconds"] for r in ranks],
+              "loss": [r[name]["loss"] for r in ranks], **beside})
+
+    want = single("train_3s", specs3, False)
+    atols = step_atols(specs3, want["grads"], 2e-3)
+    train_line("train_3s", loss_single=want["loss"].item(), tolerance_factor=2e-3,
+               vs_single=[{**hold_step(f"15b train_3s rank {r['rank']}", r["train_3s"], want,
+                                       atols, SCALE_LR, hold_grads=False),
+                           **step_distance(r["train_3s"], want, specs3)} for r in ranks])
+    # The 6s step with BatchNorm from these clips is ill-conditioned in
+    # float32: a change of rounding (another split of the batch, F.batch_norm's
+    # fused backward or group_batch_norm's) moves its gradients by about a
+    # percent of their max (PERF.md §6). Its algebra is held in float64,
+    # where the sharded step must give the single-process step to 1e-9 of
+    # each tensor. In float32 both steps are roundings of the float64 one:
+    # each rank's step must lie within F32_SPREAD x the single float32
+    # step's own distance from float64 (the largest share over gradients,
+    # cancelled biases and tensors after the step), its loss at rtol 1e-5.
+    exact = single("train_6s_bn", specs6_bn, True, torch.float64)
+    for r in ranks:
+        d = step_distance(r["train_6s_bn_f64"], exact, specs6_bn)
+        if not (d["loss_rel_err"] <= 1e-12 and max(d["grad"][0], d["cancelled_bias_grad"][0],
+                                                   d["after"][0]) <= 1e-9):
+            raise AssertionError(f"15b train_6s_bn in float64, rank {r['rank']}: {d}")
+    train_line("train_6s_bn_f64", vs_single=[step_distance(r["train_6s_bn_f64"], exact,
+                                                           specs6_bn) for r in ranks])
+    want = single("train_6s_bn", specs6_bn, True)
+
+    def spread(d):
+        return max(d["grad"][0], d["cancelled_bias_grad"][0], d["after"][0])
+    own = step_distance(want, exact, specs6_bn)
+    vs_f64 = [step_distance(r["train_6s_bn"], exact, specs6_bn) for r in ranks]
+    for r, d in zip(ranks, vs_f64):
+        rel = abs(r["train_6s_bn"]["loss"] - want["loss"].item()) / abs(want["loss"].item())
+        if not (rel <= 1e-5 and spread(d) <= F32_SPREAD * spread(own)):
+            raise AssertionError(f"15b train_6s_bn in float32, rank {r['rank']}: loss rel "
+                                 f"err {rel} from the single step; from float64 {d}, the "
+                                 f"single float32 step {own}")
+    train_line("train_6s_bn", loss_single=want["loss"].item(), spread_factor=F32_SPREAD,
+               vs_single=[step_distance(r["train_6s_bn"], want, specs6_bn) for r in ranks],
+               vs_float64=vs_f64, single_vs_float64=own)
+    del want, exact
+
+    single = drsa_fit_batched(data["U0"][None], data["act"][None], data["ctx"][None],
+                              np.ones((1, len(data["act"])), np.float32), K, RESTART_STEPS)
+    want = single.objectives[0].cpu()
+    ortho, rel = [], []
+    for r in ranks:
+        U = torch.as_tensor(r["drsa"]["U"])
+        ortho.append((U.transpose(-2, -1) @ U - torch.eye(U.shape[-1])).abs().max().item())
+        rel.append(((torch.as_tensor(r["drsa"]["objectives"]) - want).abs()
+                    / want.abs()).max().item())
+        if not (ortho[-1] <= 1e-4 and rel[-1] <= 2e-2):
+            raise AssertionError(f"15b DRSA rank {r['rank']}: max|U^T U - I| {ortho[-1]}, "
+                                 f"objective rel err {rel[-1]}")
+    emit({"phase": "scaleout_w2_drsa", "card": card, "world": 2, "runs": 3,
+          "steps": RESTART_STEPS, "vectors": len(data["act"]),
+          "seconds": [r["drsa"]["seconds"] for r in ranks], "orthogonality_max_err": ortho,
+          "objective_max_rel_err": rel})
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2441,6 +2904,12 @@ def main() -> int:
     emit({"phase": "workflow_total", "card": card, "seconds": time.time() - t0})
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------- scale-out
+    t0 = time.time()
+    scaled = scaleout(card)
+    emit({"phase": "scaleout_total", "card": card, "seconds": time.time() - t0})
+    torch.cuda.empty_cache()
+
     kernels = []
     for name in SOURCES:
         paths = {}
@@ -2478,8 +2947,10 @@ def main() -> int:
         row["evaluate_launches"] = {p: c[name] for p, c in evaluated.items()}
         row["train_then_explain_launches"] = {p: c[name] for p, c in trained.items()}
         row["workflow_launches"] = {p: c[name] for p, c in workflowed.items()}
+        row["scaleout_launches"] = {p: c[name] for p, c in scaled.items()}
         row["launches"] += sum(c[name] for c in (*fitted.values(), *evaluated.values(),
-                                                 *trained.values(), *workflowed.values()))
+                                                 *trained.values(), *workflowed.values(),
+                                                 *scaled.values()))
         if name == "logmel":
             row["matmul_dft_logmel_ms"] = sum(v["matmul_dft_logmel_ms"] for v in paths.values())
             row["library_ms"] = sum(v["library_ms"] for v in paths.values())

@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import functools
 import os
 import re
 from typing import Callable, NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from drsa_audio_tpu_torch.models.vgg import (
@@ -271,9 +273,62 @@ def sample_step_draws(specs_or_model, per_example_mel: MelPipeline | None, batch
     return draws
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """all_reduce (sum) of ``x``, whose backward is the all_reduce of the
+    gradient: every rank's input reaches every rank's output."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def group_batch_norm(group, x, running_mean, running_var, weight, bias, training=True,
+                     momentum=0.1, eps=1e-5):
+    """``F.batch_norm``'s training mode on the statistics of the whole
+    group's batch: the count and sum, then the sum of squared deviations
+    from the global mean, all-reduced with autograd through the reduction
+    (the all-reduce XLA inserts for a mean over a sharded axis). The running
+    variance takes the unbiased correction of the global count."""
+    dims = [0, *range(2, x.dim())]
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    sums = _SumOverGroup.apply(
+        torch.cat([x.sum(dims), x.new_full((1,), x.numel() / x.shape[1])]), group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    xc = x - mean.view(shape)
+    var = _SumOverGroup.apply((xc * xc).sum(dims), group) / n
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1 - momentum).add_(var * (n / (n - 1)), alpha=momentum)
+    return xc * torch.rsqrt(var + eps).view(shape) * weight.view(shape) + bias.view(shape)
+
+
+def _all_reduce_grads(optimizer: torch.optim.Optimizer, group) -> None:
+    """Sum every parameter's gradient over the group, in one flat bucket."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
+
+
 def make_train_step(specs_or_model, optimizer: torch.optim.Optimizer,
-                    per_example_mel: MelPipeline | None = None, has_bn: bool = False):
-    """The train step ``step(params, batch, labels, draws) -> (loss, acc)``.
+                    per_example_mel: MelPipeline | None = None, has_bn: bool = False,
+                    group=None):
+    """The train step ``step(params, batch, labels, draws, n_global=None)
+    -> (loss, acc)``.
 
     ``params`` holds the optimizer's tensors (a ``VGG`` model's own where
     None). With ``per_example_mel`` the batch is raw waveforms and the
@@ -282,28 +337,50 @@ def make_train_step(specs_or_model, optimizer: torch.optim.Optimizer,
     BatchNorm on batch statistics, whose running statistics are written
     back into ``params``), the mean softmax cross-entropy, backward and the
     optimizer's update. Loss and accuracy are returned on the device; the
-    gradients stay in each tensor's ``.grad``."""
+    gradients stay in each tensor's ``.grad``.
+
+    With ``group`` (a ``torch.distributed`` process group) the step is this
+    rank's part of one step on a global batch of ``n_global`` rows, of which
+    ``batch``, ``labels`` and ``draws`` hold this rank's: the loss is the
+    sum of the rank's cross-entropies over ``n_global``, so that the
+    gradients, all-reduced in one flat bucket before ``optimizer.step()``,
+    are the global mean's, uneven blocks included; BatchNorm normalises with
+    the global batch's statistics (``group_batch_norm``); the loss and
+    accuracy returned are the global ones."""
     specs = _specs_of(specs_or_model)
     model = specs_or_model if hasattr(specs_or_model, "params") else None
+    batch_norm = F.batch_norm if group is None else functools.partial(group_batch_norm, group)
 
-    def step(params, batch, labels, draws):
+    def step(params, batch, labels, draws, n_global=None):
         params = model.params() if params is None else params
         labels = labels.long()
+        if group is not None and n_global is None:
+            raise ValueError("a step over a process group needs the global batch's n_global")
         with torch.no_grad():
             mels = per_example_mel.apply(batch, draws["mel"]) if per_example_mel else batch
         if has_bn:
-            logits, new = train_forward_with_bn(specs, params, mels, draws["dropout"])
+            logits, new = train_forward_with_bn(specs, params, mels, draws["dropout"],
+                                                batch_norm=batch_norm)
         else:
             logits = forward(specs, params, mels, train=True, keep_masks=draws["dropout"])
-        loss = F.cross_entropy(logits, labels)
+        if group is None:
+            loss = F.cross_entropy(logits, labels)
+        else:
+            loss = F.cross_entropy(logits, labels, reduction="sum") / n_global
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            _all_reduce_grads(optimizer, group)
         optimizer.step()
         with torch.no_grad():
             if has_bn:
                 set_running_stats(params, new)
-            acc = (logits.argmax(-1) == labels).float().mean()
-        return loss.detach(), acc
+            if group is None:
+                return loss.detach(), (logits.argmax(-1) == labels).float().mean()
+            totals = torch.stack([loss.detach(),
+                                  (logits.argmax(-1) == labels).float().sum() / n_global])
+            dist.all_reduce(totals, group=group)
+        return totals[0], totals[1]
 
     return step
 

@@ -338,19 +338,23 @@ def forward(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor, train: bo
 
 
 def train_forward_with_bn(specs: Sequence[LayerSpec], params: dict, x: torch.Tensor,
-                          keep_masks: dict | None = None, momentum: float = BN_MOMENTUM):
+                          keep_masks: dict | None = None, momentum: float = BN_MOMENTUM,
+                          batch_norm=F.batch_norm):
     """Training forward with BatchNorm on the batch's statistics: returns
     (logits, params with each BN layer's new running statistics). BN
     normalises with the biased batch variance and moves the running
     variance toward the unbiased one, running = (1 - momentum) * running +
-    momentum * batch statistic (``F.batch_norm``'s training mode)."""
+    momentum * batch statistic (``F.batch_norm``'s training mode).
+    ``batch_norm`` takes ``F.batch_norm``'s arguments and updates the
+    running statistics it is given in place; a train step over a process
+    group (models.train) passes one whose statistics are the whole group's."""
     new_params = dict(params)
     for spec in specs:
         if spec.kind in ("batchnorm", "batchnorm1d"):
             p = params[spec.name]
             mean, var = p["running_mean"].clone(), p["running_var"].clone()
-            x = F.batch_norm(x, mean, var, p["weight"], p["bias"], training=True,
-                             momentum=momentum, eps=BN_EPS)
+            x = batch_norm(x, mean, var, p["weight"], p["bias"], training=True,
+                           momentum=momentum, eps=BN_EPS)
             new_params[spec.name] = {**p, "running_mean": mean, "running_var": var}
         else:
             keep = keep_masks.get(spec.name) if keep_masks is not None else None

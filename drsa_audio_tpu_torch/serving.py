@@ -27,6 +27,7 @@ import torch
 from drsa_audio_tpu_torch.models.projection import insert_projection
 from drsa_audio_tpu_torch.models.vgg import LayerSpec
 from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_normalize
+from drsa_audio_tpu_torch.parallel.sharding import mesh_device, sharded
 from drsa_audio_tpu_torch.runtime.loader import load_audio
 from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY
 from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
@@ -115,13 +116,24 @@ class ExplainerService:
 
     ``device`` defaults to CUDA and raises where there is none. On a CUDA
     device the service turns TF32 off for cuDNN convolutions and matmuls:
-    LRP runs in full float32."""
+    LRP runs in full float32.
+
+    With a ``mesh`` (parallel.sharding ``get_mesh``) the service is one
+    rank of a data-parallel group and runs on the rank's device: every rank
+    calls ``explain`` with the same request, explains its block of the
+    clips, and gathers the heatmaps and logits of the whole batch, in row
+    order, before readback and sort, so that every rank returns the same
+    dict."""
 
     def __init__(self, specs: Sequence[LayerSpec], params: dict, name_map,
                  Us: dict, num_concepts: int, layer_idx: int,
                  case: str = "gtzan", class_idx_mapper: dict | None = None,
-                 device=None):
+                 device=None, mesh=None):
+        self.mesh = mesh
         self.device = resolve_device(device, "ExplainerService")
+        if mesh is not None and self.device != mesh_device(mesh):
+            raise ValueError(f"ExplainerService: device {self.device} is not the mesh's "
+                             f"{mesh_device(mesh)}")
         self.config = FrontendConfig.for_case(case)
         self.specs = list(specs)
         self.params = params_on(params, self.device)
@@ -135,20 +147,27 @@ class ExplainerService:
         self.composite = class_composite(name_map, num_concepts)
 
     def _dispatch(self, wavs, class_name: str, fused: bool | None = None):
-        """Enqueue one request; returns (heatmaps, logits) on the device."""
+        """Enqueue one request; returns (heatmaps, logits) on the device
+        (with a mesh, the whole batch's, gathered from the ranks)."""
         onehot = torch.zeros(self.n_classes, device=self.device)
         onehot[self.mapper[class_name]] = 1.0
         cfg = self.config
-        with torch.inference_mode():
-            x = torch.as_tensor(np.asarray(wavs, np.float32), device=self.device)
+        specs_proj = insert_projection(
+            self.specs, self.layer_idx, self.Us[class_name],
+            self.num_concepts, input_size=(cfg.n_mels, cfg.width))
+
+        def run(x):
             mels = logmel(peak_normalize(x), cfg)[:, None]
-            specs_proj = insert_projection(
-                self.specs, self.layer_idx, self.Us[class_name],
-                self.num_concepts, input_size=(cfg.n_mels, cfg.width))
             return subspace_heatmaps(
                 specs_proj, self.params, mels, self.composite,
                 self.num_concepts, output_mask=lambda lg: lg * onehot[None, :],
                 fused=fused)
+
+        with torch.inference_mode():
+            wavs = np.asarray(wavs, np.float32)
+            if self.mesh is not None:
+                return sharded(run, self.mesh)(wavs)
+            return run(torch.as_tensor(wavs, device=self.device))
 
     def explain(self, wavs: np.ndarray, class_name: str,
                 fused: bool | None = None) -> dict:

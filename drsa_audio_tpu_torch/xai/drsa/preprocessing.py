@@ -9,7 +9,11 @@ position (inference), and the context vector is c = R / (a + 1e-7).
 Sampling draws from a ``torch.Generator`` (or an integer seed), one
 ``randperm`` per clip, so the locations differ from the JAX package's for
 the same integer: to compare the two, pass the JAX indices to
-``gather_vectors``.
+``gather_vectors``. With ``clip_seeds`` (``draw_clip_seeds``, the JAX
+package's ``clip_keys``) each clip draws from a generator of its own, so
+its positions do not depend on the clips beside it: the sharded extraction
+(parallel.sharding) draws the seeds for the whole batch and gives each
+rank its rows' seeds.
 """
 
 from __future__ import annotations
@@ -73,17 +77,32 @@ def _generator(seed_or_generator) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed_or_generator))
 
 
-def sample_spatial_locations(generator, batch_size: int, map_hw, num_locations: int
-                             ) -> torch.Tensor:
+def draw_clip_seeds(generator, batch_size: int) -> torch.Tensor:
+    """One seed per clip, int64 [batch_size], drawn from ``generator`` (a
+    torch.Generator or an integer seed), for ``clip_seeds``."""
+    g = _generator(generator)
+    return torch.randint(0, 2 ** 62, (batch_size,), generator=g, device=g.device,
+                         dtype=torch.int64).cpu()
+
+
+def sample_spatial_locations(generator, batch_size: int, map_hw, num_locations: int,
+                             clip_seeds=None) -> torch.Tensor:
     """Per-clip random positions without replacement (reference
     preprocessing.py:196-216): the first ``num_locations`` of a
     ``randperm`` of the flattened map per clip, drawn on the host from
-    ``generator`` (a torch.Generator or an integer seed). Returns int64
-    [batch_size, num_locations]."""
-    g = _generator(generator)
+    ``generator`` (a torch.Generator or an integer seed), one clip after
+    the other. With ``clip_seeds`` (int64 [batch_size]) clip i draws from
+    a generator seeded with ``clip_seeds[i]`` alone and ``generator`` is
+    not used. Returns int64 [batch_size, num_locations]."""
     total = int(map_hw[0]) * int(map_hw[1])
-    return torch.stack([torch.randperm(total, generator=g)[:num_locations]
-                        for _ in range(batch_size)])
+    if clip_seeds is not None:
+        seeds = torch.as_tensor(clip_seeds, dtype=torch.int64).tolist()
+        if len(seeds) != batch_size:
+            raise ValueError(f"{len(seeds)} clip seeds for {batch_size} clips")
+        gens = [torch.Generator().manual_seed(s) for s in seeds]
+    else:
+        gens = [_generator(generator)] * batch_size
+    return torch.stack([torch.randperm(total, generator=g)[:num_locations] for g in gens])
 
 
 def gather_vectors(maps: torch.Tensor, idcs) -> torch.Tensor:
@@ -113,16 +132,19 @@ def normalize_vectors(vectors: torch.Tensor) -> torch.Tensor:
 def preprocess_data(specs, params, input_batch, composite: Composite, layer_idx: int,
                     class_idx: int, num_locations: int | None = None,
                     one_hot_encoded: bool = False, generator=None,
-                    attr_batch_size: int | None = 64, extract_fn=None, device=None):
+                    attr_batch_size: int | None = 64, extract_fn=None, device=None,
+                    clip_seeds=None):
     """(activation vectors, context vectors) for DRSA (reference
     preprocess_data, preprocessing.py:18-89).
 
     With ``num_locations`` (training mode) that many positions are sampled
     per clip from ``generator`` (a torch.Generator or an integer seed;
-    default seed 0) -> [b*L, d] each; without (inference mode) every
-    position -> [b, h*w, d]. ``attr_batch_size`` runs the LRP pass that many
-    clips at a time, as the reference does at 64; the positions are drawn
-    after, for the whole batch, so chunking does not move them.
+    default seed 0), or from ``clip_seeds`` (int64 [b], one generator per
+    clip; ``generator`` is then not used) -> [b*L, d] each; without
+    (inference mode) every position -> [b, h*w, d]. ``attr_batch_size``
+    runs the LRP pass that many clips at a time, as the reference does at
+    64; the positions are drawn after, for the whole batch, so chunking
+    does not move them.
     ``extract_fn`` (make_extract_fn) must have been built for this call's
     layer, class encoding, composite, specs, params and device.
 
@@ -156,7 +178,7 @@ def preprocess_data(specs, params, input_batch, composite: Composite, layer_idx:
             act_maps, rel_maps = extract_fn(x, class_idx)
         if num_locations:
             idcs = sample_spatial_locations(0 if generator is None else generator, b,
-                                            act_maps.shape[-2:], num_locations)
+                                            act_maps.shape[-2:], num_locations, clip_seeds)
             act_vecs = gather_vectors(act_maps, idcs)
             rel_vecs = gather_vectors(rel_maps, idcs)
         else:

@@ -936,3 +936,21 @@ def test_toy_cli_chain_on_card_launches_the_chain(cuda, tmp_path):
                             "--subset-size", "4"])
     assert chain.LAUNCHES == {"chain_block": 3, "first_layer": 1, "first_block_deep": 0,
                               "merged_tail": 0}
+
+
+def test_sharded_programs_at_world_one_under_nccl_match_the_unsharded(cuda):
+    """One spawned rank in an NCCL group (parallel.launch): the 3s explain
+    pipeline (8 clips, full width) launches chain_block 3 times and
+    first_layer once and gives the unsharded heatmaps bit for bit; one
+    sharded train step gives make_train_step's loss and params bit for bit
+    (tests/test_torch_parallel_workers.py card_world1)."""
+    from drsa_audio_tpu_torch.parallel.launch import launch
+    from test_torch_parallel_workers import card_world1
+    rng = np.random.default_rng(0)
+    U = np.zeros((64, 64), np.float32)
+    U[np.arange(64), rng.permutation(64)] = rng.choice([-1.0, 1.0], 64)
+    data = {"U": U, "mels": rng.standard_normal((8, 1, 128, 128)).astype(np.float32)}
+    (out,) = launch(1, card_world1, (data,), device="cuda", timeout_s=600)
+    assert out["launches"] == {"chain_block": 3, "first_layer": 1, "first_block_deep": 0,
+                               "merged_tail": 0}
+    assert out["heat_equal"] and out["loss_equal"] and out["params_equal"], out

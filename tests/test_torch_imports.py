@@ -33,7 +33,8 @@ def test_port_imports_without_jax():
               "scripts.extract_drsa_data", "scripts.optimize_subspaces",
               "scripts.run_concept_eval", "scripts.sonify_prototypes",
               "scripts.demo_toy_workflow", "scripts.concept_recovery_experiment",
-              "scripts.run_gtzan_synth_workflow"):
+              "scripts.run_gtzan_synth_workflow", "parallel.sharding", "parallel.launch",
+              "graft_entry"):
         assert "drsa_audio_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
