@@ -6,9 +6,11 @@
 1. Prints the card's name and power limit, builds the six CUDA kernels
    (csrc/*.cu, one nvcc each, in parallel) and beside them the native
    runtime (csrc/audio_runtime.cpp with g++: WAV decode, Telea), and counts
-   the HMMA
-   (tensor-core) instructions in the SASS of chain_block, first_block_deep,
-   merged_tail and gamma_nonneg (cuobjdump): it fails where there are none.
+   the tensor-core instructions in the SASS of chain_block,
+   first_block_deep, merged_tail and gamma_nonneg (cuobjdump): it fails
+   where chain_block or first_block_deep hold no HGMMA (wgmma) or any HMMA
+   (mma.sync), or merged_tail or gamma_nonneg no HMMA. The build line
+   carries each library's registers, spills and serialised wgmma groups.
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
    weights and U), with every launch counter set to 0 just before and read
@@ -23,6 +25,9 @@
    holds each kernel against its plain PyTorch version on them (TF32 off),
    and times both with CUDA events beside the kernel's lower bound. Each
    kernel runs twice on each recorded input and must give the same bits.
+   chain_block is also timed launch by launch (chain_block_split: each
+   conv's chain_gamma_prep and chain_gamma_apply beside its own bound, with
+   the tap widths its layouts chose and the shared memory a block).
 5. Times one 256-clip request end to end, then the service's own stages of
    the same request (upload, front-end, forward + upper LRP, lower segment,
    readback, sort; medians of STAGE_REPS), and traces one request with
@@ -48,7 +53,9 @@
    and 2 times). One layer-33 request with the merged-tail switch on must
    launch merged_tail 0 times: the 6s model does not merge.
 7. Records the five kernel launches of one 64-clip layer-33 request and
-   holds and times each against its plain version, as 4.
+   holds and times each against its plain version, as 4, with the splits
+   (chain_block_split_6s; first_block_deep_split_6s: its chain_gamma_prep
+   and its main launch with the rim pass).
 8. Times one 64-clip 6s request end to end, by stages, and traced, as 5.
 9. The shared-denominator path (subspace_heatmaps with
    shared_denominators=True after the service's peak_normalize and logmel,
@@ -233,6 +240,7 @@ Exits non-zero, printing no result, where CUDA is unavailable.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -305,19 +313,54 @@ def bounds(flops: float, nbytes: float) -> dict:
             "bound_tc_ms": least, "bound_fma_ms": max(flops / PEAK_FLOPS, t_bytes) * 1e3}
 
 
-def hmma_counts(libs: dict) -> dict:
-    """The HMMA (tensor-core) instructions in the SASS of the four
-    tensor-core kernels' libraries, by cuobjdump; fails where there are
-    none."""
+# The tensor-core instruction each library's SASS must hold: wgmma (HGMMA)
+# and no mma.sync (HMMA) in the chain's main kernels, mma.sync in the two
+# that stay on it.
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+SASS_EXPECTED = {"chain_block": "HGMMA", "first_block_deep": "HGMMA",
+                 "merged_tail": "HMMA", "gamma_nonneg": "HMMA"}
+
+
+def sass_counts(libs: dict) -> dict:
+    """The HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of the
+    four tensor-core kernels' libraries, by cuobjdump; fails where a library
+    holds none of its expected instruction (SASS_EXPECTED), or where an
+    HGMMA library still holds an HMMA."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     counts = {}
-    for name in ("chain_block", "first_block_deep", "merged_tail", "gamma_nonneg"):
+    for name, want in SASS_EXPECTED.items():
         sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True,
                               timeout=300, check=True).stdout
-        counts[name] = sum("HMMA" in line for line in sass.splitlines())
-        if not counts[name]:
-            raise AssertionError(f"{name}: no HMMA instruction in {libs[name].name}")
+        ops = [m.group(1) for m in SASS_OP.finditer(sass)]
+        counts[name] = {"HMMA": ops.count("HMMA"), "HGMMA": ops.count("HGMMA")}
+        if not counts[name][want]:
+            raise AssertionError(f"{name}: no {want} instruction in {libs[name].name}")
+        if want == "HGMMA" and counts[name]["HMMA"]:
+            raise AssertionError(f"{name}: {counts[name]['HMMA']} HMMA left in "
+                                 f"{libs[name].name}")
     return counts
+
+
+def kernel_registers(lines: list) -> dict:
+    """{kernel: registers a thread} from a library's ptxas report, the
+    kernels' names demangled with the toolkit's cu++filt where it has one
+    (template arguments kept: the tile widths and m64 tiles a warpgroup)."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cu++filt")
+    out, name = {}, None
+    for ln in lines:
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ")[1].strip()
+        elif "Used " in ln and " registers" in ln and name is not None:
+            out[name] = int(ln.split("Used ")[1].split()[0])
+    if not out or not os.path.exists(tool):
+        return out
+    names = subprocess.run([tool], input="\n".join(out), capture_output=True, text=True,
+                           timeout=60, check=True).stdout.splitlines()
+    if len(names) != len(out):
+        return out
+    short = (re.sub(r"\((?:unsigned )?(?:int|bool|long)\)", "", d).split("(")[0]
+             .replace("void ", "").replace("<unnamed>::", "") for d in names)
+    return dict(zip(short, out.values()))
 
 
 def reset_counts() -> None:
@@ -395,6 +438,78 @@ def merged_tail_split_ms(R, xs, convs, apres, a1, fl) -> dict:
     out = {"prep_ms": cuda_ms(lambda: chain._merged_preps(xs, convs, apres), 5),
            "main_ms": cuda_ms(lambda: chain._merged_main(R, xs, convs, a1, fl, preps), 5),
            "ms": whole}
+    out["rest_ms"] = whole - out["prep_ms"] - out["main_ms"]
+    return out
+
+
+def chain_block_split_ms(R, xs, convs, apre=None, pool=None) -> dict:
+    """chain_block's launches timed apart on its own inputs (CUDA events, 5
+    calls each): per conv, top-down, chain_gamma_prep and chain_gamma_apply
+    (on the prep's G and the relevance the conv above passes down), each
+    beside its own bound (the flops and bytes of chain_block_work for that
+    launch alone); the rest of the wrapper's call (checks, allocations, the
+    host's time where the device waits for it) as the whole call less all
+    of them."""
+    import ctypes
+
+    import torch
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    whole = cuda_ms(lambda: chain.chain_block(R, xs, convs, apre, pool), 5)
+    k, convs_out, total = R.shape[1], [], 0.0
+    for j, (x, cv) in enumerate(zip(xs, convs)):
+        n, H, W, _ = x.shape
+        a = apre if apre is not None and j == len(convs) - 1 else None
+        G = chain._gamma_prep(x, cv, stream)
+        out = chain._gamma_apply(R, G, x, cv, stream, a, pool)
+        prep = bounds(2.0 * n * H * W * 9 * cv.ci * 2 * cv.co,
+                      4.0 * (x.numel() + 2 * cv.wz1.numel() + 3 * cv.co + G.numel()))
+        apply = bounds(2.0 * k * n * H * W * 9 * cv.co * cv.ci,
+                       4.0 * (R.numel() + G.numel() + x.numel() + cv.wz1.numel() + out.numel()
+                              + (a.numel() if a is not None else 0)))
+        row = {"level": [H, W], "ci": cv.ci, "co": cv.co, "prep_cols": cv.prep_cols,
+               "apply_cols": cv.apply_cols,
+               "prep_ms": cuda_ms(lambda: chain._gamma_prep(x, cv, stream), 5),
+               "prep_bound_ms": prep["bound_ms"],
+               "apply_ms": cuda_ms(lambda: chain._gamma_apply(R, G, x, cv, stream, a, pool), 5),
+               "apply_bound_ms": apply["bound_ms"],
+               **dict(zip(("prep_smem_bytes", "apply_smem_bytes"), chain.gamma_smem(cv, H)))}
+        total += row["prep_ms"] + row["apply_ms"]
+        convs_out.append(row)
+        R = out
+    return {"convs": convs_out, "ms": whole, "rest_ms": whole - total}
+
+
+def first_block_deep_split_ms(R, a1, apre, gconv, fl, pool) -> dict:
+    """first_block_deep's launches timed apart on its own inputs (CUDA
+    events, 5 calls each): its chain_gamma_prep (M from relu(a1) and the
+    pool route of relu(apre)), the main kernel with its rim pass on that M,
+    each beside its own bound (as first_block_deep_work, split), and the
+    rest of the wrapper's call as the whole call less both."""
+    import ctypes
+
+    import torch
+    from drsa_audio_tpu_torch.xai.lrp import chain
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    b, k = R.shape[:2]
+    H, W, C0 = a1.shape[1:]
+    C = apre.shape[-1]
+    M = chain._gamma_prep(a1, gconv, stream, apre=apre, pool=pool)
+    prep = bounds(2.0 * 2 * b * H * W * C0 * C * 9,
+                  4.0 * (a1.numel() + apre.numel() + 2 * gconv.wz1.numel() + 3 * C + M.numel()))
+    main = bounds(2.0 * k * b * H * W * C0 * C * 9 + 2.0 * k * b * H * W * C0 * 9,
+                  4.0 * (R.numel() + M.numel() + a1.numel() + gconv.wz1.numel()
+                         + fl.z0.numel() + fl.taps.numel() + b * k * H * W))
+    whole = cuda_ms(lambda: chain.first_block_deep(R, a1, apre, gconv, fl, pool), 5)
+    out = {"prep_ms": cuda_ms(lambda: chain._gamma_prep(a1, gconv, stream, apre=apre,
+                                                        pool=pool), 5),
+           "prep_bound_ms": prep["bound_ms"],
+           "main_ms": cuda_ms(lambda: chain._deep_main(R, M, a1, gconv, fl, pool, stream), 5),
+           "main_bound_ms": main["bound_ms"], "ms": whole,
+           "prep_smem_bytes": chain.gamma_smem(gconv, H)[0],
+           "main_smem_bytes": chain.deep_smem(gconv)}
     out["rest_ms"] = whole - out["prep_ms"] - out["main_ms"]
     return out
 
@@ -736,10 +851,12 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
                "plain_ms": min(ms_plain, ms_plain2), **bounds(flops, nbytes)}
         rows.append(row)
         emit({"phase": "kernel_vs_plain" + phase_tag(path), "batch": batch, "K": K, **row})
-        if name == "merged_tail":
+        splits = {"merged_tail": merged_tail_split_ms, "chain_block": chain_block_split_ms,
+                  "first_block_deep": first_block_deep_split_ms}
+        if name in splits:
             with torch.inference_mode():
-                emit({"phase": "merged_tail_split" + phase_tag(path), "launch": i,
-                      **merged_tail_split_ms(*args)})
+                emit({"phase": f"{name}_split" + phase_tag(path), "launch": i,
+                      **splits[name](*args)})
     return rows
 
 
@@ -2717,14 +2834,18 @@ def main() -> int:
         native_lib = native_lib.result()
     logs = {n: p.with_suffix(".log").read_text().splitlines() for n, p in libs.items()}
     emit({"phase": "build", "seconds": time.time() - t0,
+          "registers": {n: kernel_registers(lines) for n, lines in logs.items()},
           "native": {"source": "csrc/audio_runtime.cpp", "library": native_lib.name,
                      "flags": native.FLAGS},
           "ptxas": {n: [ln.strip() for ln in lines if "registers" in ln or "smem" in ln]
                     for n, lines in logs.items()},
           "spill_store_bytes": {n: sum(int(ln.split("bytes spill stores")[0].split()[-1])
                                        for ln in lines if "bytes spill stores" in ln)
-                                for n, lines in logs.items()}})
-    emit({"phase": "sass", "hmma": hmma_counts(libs)})
+                                for n, lines in logs.items()},
+          # ptxas's C7520: wgmma groups it had to serialise (a performance loss)
+          "wgmma_serialized": {n: sum("C7520" in ln for ln in lines)
+                               for n, lines in logs.items()}})
+    emit({"phase": "sass", "counts": sass_counts(libs)})
 
     # ---------------------------------------------------------------- 3s
     specs = build_layer_specs(gtzan_3s_config())

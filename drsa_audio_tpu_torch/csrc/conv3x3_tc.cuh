@@ -1,7 +1,9 @@
-// The tensor-core core of the chain kernels (chain_block.cu, first_block_deep.cu,
-// merged_tail.cu, gamma_nonneg.cu):
-// a 3x3 SAME conv, or its transpose, as an implicit GEMM in 3xTF32, fed by
-// asynchronous, double-buffered staging of channel slices.
+// The mma.sync core of merged_tail.cu and gamma_nonneg.cu: a 3x3 SAME
+// conv, or its transpose, as an implicit GEMM in 3xTF32, fed by
+// asynchronous, double-buffered staging of channel slices. Its staging and
+// A-operand pieces (stage_region, split_region, lane_row, ldsm_a, pipeline)
+// also feed the wgmma core of chain_block.cu and first_block_deep.cu
+// (conv3x3_wgmma.cuh).
 //
 // Product. out[m, n] = sum_{tap, c} A[m + off(tap), c] * w[tap][c][n], m a
 // pixel of the block's tile, n an output channel; the reduction runs over
@@ -20,10 +22,10 @@
 // Instruction. mma.sync m16n8k8 (row.col, f32 += tf32 * tf32). A 3x3 conv's
 // A operand is the staged tile shifted by one pixel per tap; mma.sync
 // fragments loaded from padded shared memory take that shift as a constant
-// offset, where wgmma's shared-memory descriptors would need a re-staged
-// copy per dx. mma.sync does not reach the dense TF32 rate on Hopper; the
-// kernels are bound by its issue rate and the instructions that feed it,
-// and wgmma is the next step.
+// offset. mma.sync does not reach the dense TF32 rate on Hopper; the
+// kernels on it are bound by its issue rate and the instructions that feed
+// it. wgmma with A from registers keeps the same constant-offset loads
+// (conv3x3_wgmma.cuh).
 //
 // Staging. cp.async (16 bytes, .cg, zero-fill outside the image and past the
 // channel count) brings slice s + 1 of the input region and of the taps

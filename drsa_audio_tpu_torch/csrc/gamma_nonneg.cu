@@ -14,10 +14,11 @@
 //   R_in[k] = x * (convT(R[k] * m1, w + g*w+) + convT(R[k] * m3, w + g*w-))
 // with b1 = b + g*b+, b2 = b + g*b-, b0 = b. x is used as given (no relu).
 // Unlike chain_block.cu, no relu gate multiplies R here, so the m3 term is
-// not zero and both transposed terms are formed.
+// not zero and both transposed terms are formed. The products stay on
+// mma.sync (conv3x3_tc.cuh); chain_block.cu's run on wgmma.
 //
 // Two launches, both 3xTF32 implicit GEMMs on the tensor cores with
-// cp.async double buffering (gamma_tc.cuh, PAIR):
+// cp.async double buffering (gamma_tc.cuh):
 //   prep   once per (instance, tile, column block): the forward pair as one
 //          GEMM over 2*Co interleaved columns, summed FRESH (the masks are
 //          sign decisions), writes M = (m1, m3) interleaved [b, H, W, 2*Co]
@@ -64,15 +65,14 @@ inline bool takes(int b, int K, int H, int W, int Ci, int Co) {
 extern "C" {
 
 // x [b,Ci,H,W], wf [ceil(Ci/8),9,8,2Co] (the interleaved forward pair,
-// xai/lrp/chain.py GammaConv.w_prep), bias [3,Co] (b1, b0, b2), M
+// xai/lrp/fused_gamma.py pair_weights), bias [3,Co] (b1, b0, b2), M
 // [b,H,W,2Co]. Returns cudaErrorInvalidValue, before the launch, for
 // counts, sizes or alignments it does not take; else cudaGetLastError().
 int gamma_nonneg_prep(const float* x, const float* wf, const float* bias, float* M, int b,
                       int H, int W, int Ci, int Co, float inv, float stab, void* stream) {
   if (!takes(b, 1, H, W, Ci, Co) || !tc::aligned16(wf) || !tc::aligned16(M))
     return cudaErrorInvalidValue;
-  return gtc::prep<true>(b, (cudaStream_t)stream, x, wf, bias, nullptr, M, H, W, Ci, Co, 1, 1,
-                         inv, stab);
+  return gtc::prep(b, (cudaStream_t)stream, x, wf, bias, M, H, W, Ci, Co, inv, stab);
 }
 
 // R [K*b,Co,H,W] (clone-major), M [b,H,W,2Co] (from the prep), x
@@ -84,8 +84,7 @@ int gamma_nonneg_apply(const float* R, const float* M, const float* x, const flo
                        float* out, int b, int K, int H, int W, int Ci, int Co, void* stream) {
   if (!takes(b, K, H, W, Ci, Co) || !tc::aligned16(M) || !tc::aligned16(wt))
     return cudaErrorInvalidValue;
-  return gtc::apply<true>(b, (cudaStream_t)stream, R, M, x, wt, nullptr, out, K, H, W, Ci, Co,
-                          1, 1);
+  return gtc::apply(b, (cudaStream_t)stream, R, M, x, wt, out, K, H, W, Ci, Co);
 }
 
 }  // extern "C"

@@ -114,21 +114,79 @@ def slice_taps(taps: torch.Tensor, n_pad: int) -> torch.Tensor:
     return out.reshape(9, kp // SLICE, SLICE, n_pad).transpose(0, 1).contiguous()
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on float32 values: the significand rounded to 10 bits,
+    ties away from zero (add 0x1000 to the bit pattern, clear the low 13
+    bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def wg_cols(n: int) -> int:
+    """The width of a wgmma B tile for n columns: the next of 8, 16, 32, 64,
+    104, 128 (the widths the kernels are built for), past 128 the next
+    multiple of 64. The layout's width is the one decision: the wrappers
+    pass it to the kernels, which refuse a width they lack."""
+    for c in (8, 16, 32, 64, 104, 128):
+        if n <= c:
+            return c
+    return -(-n // 64) * 64
+
+
+def prep_chunk(n: int) -> int:
+    """chain_gamma_prep's column chunk for N = 2*Co columns: the tile width,
+    at most 32, so that the prep's FRESH scratch fragments fit beside its
+    accumulators (csrc/chain_block.cu)."""
+    return min(wg_cols(n), 32)
+
+
+def wgmma_taps(taps: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Taps [9, Kr, N] (tap, reduction channel, output column), split once
+    into hi = tf32(w) and lo = tf32(w - hi) and laid out K-major for the
+    wgmma kernels as [ceil(N/chunk), ceil(Kr/8), 2 (hi, lo), 9, 2, chunk, 4]:
+    per column chunk and 8-channel slice one contiguous block, in which a
+    (part, tap) tile holds the slice's two 4-channel halves (kc), each
+    [chunk][4] (column n, channel 8s + 4kc + i at [kc][n][i]). Zeros past Kr
+    and N."""
+    _, kr, n = taps.shape
+    nsl, ncb = -(-kr // SLICE), -(-n // chunk)
+    t = taps.new_zeros((9, nsl * SLICE, ncb * chunk))
+    t[:, :kr, :n] = taps
+    hi = tf32(t)
+    parts = torch.stack([hi, tf32(t - hi)])                  # [2, 9, nsl*8, ncb*chunk]
+    parts = parts.reshape(2, 9, nsl, 2, 4, ncb, chunk)       # part, tap, s, kc, i, cb, n
+    return parts.permute(5, 2, 0, 1, 3, 6, 4).contiguous()
+
+
 @dataclasses.dataclass
 class GammaConv:
     """One inner gamma conv, prepared (port of _prep_inner_weights, in plain
     NHWC). wz1 = w + g*w+, wz3 = w + g*w- (OIHW); biases = (b + g*b+, b,
-    b + g*b-). The kernels' tap layouts: ``w_prep`` [ceil(Ci/8), 9, 8, 2*Co]
-    the forward pair interleaved (column 2j wz1's output channel j, 2j + 1
-    wz3's), and ``w_apply_tc`` [ceil(Co/8), 9, 8, Ci rounded up to 8] the
-    transposed wz1 (chain_block, first_block_deep, merged_tail)."""
+    b + g*b-). The kernels' tap layouts: ``w_prep_wg`` the forward pair
+    interleaved (column 2j wz1's output channel j, 2j + 1 wz3's), pre-split
+    by ``wgmma_taps`` in column chunks of ``prep_chunk(2*Co)``
+    (chain_gamma_prep); ``w_apply_wg`` the transposed wz1, pre-split in one
+    chunk of ``wg_cols(Ci)`` (chain_gamma_apply, first_block_deep); and
+    ``w_apply_tc`` [ceil(Co/8), 9, 8, Ci rounded up to 8] the transposed wz1
+    unsplit (merged_tail's mma.sync kernel)."""
     wz1: torch.Tensor
     wz3: torch.Tensor
     biases: torch.Tensor
     inv: float
     stab: float
-    w_prep: torch.Tensor
     w_apply_tc: torch.Tensor
+    w_prep_wg: torch.Tensor
+    w_apply_wg: torch.Tensor
+
+    @property
+    def prep_cols(self) -> int:
+        """The column chunk ``w_prep_wg`` is laid out in."""
+        return self.w_prep_wg.shape[-2]
+
+    @property
+    def apply_cols(self) -> int:
+        """The column width ``w_apply_wg`` is laid out in."""
+        return self.w_apply_wg.shape[-2]
 
     @property
     def ci(self) -> int:
@@ -149,13 +207,15 @@ def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
                           b + g * torch.clamp(b, max=0.0)])
     co, ci = w.shape[:2]
     pair = torch.stack([wz1, wz3], dim=1).reshape(2 * co, ci, 3, 3)
+    pair = pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co)
     w_apply = wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous()
     return GammaConv(
         wz1=wz1, wz3=wz3, biases=biases.contiguous(),
         inv=float(np.float32(1.0 / (2.0 + g))),
         stab=float(kwargs.get("stabilizer", 1e-6)),
-        w_prep=slice_taps(pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co), 2 * co),
-        w_apply_tc=slice_taps(w_apply, -(-ci // 8) * 8))
+        w_apply_tc=slice_taps(w_apply, -(-ci // 8) * 8),
+        w_prep_wg=wgmma_taps(pair, prep_chunk(2 * co)),
+        w_apply_wg=wgmma_taps(w_apply, wg_cols(ci)))
 
 
 @dataclasses.dataclass
@@ -220,15 +280,19 @@ def _lib(name: str):
     if not getattr(lib, "_typed", False):
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "chain_block":
-            lib.chain_gamma_prep.argtypes = [P] * 5 + [I] * 7 + [Fl, Fl, P]
-            lib.chain_gamma_apply.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+            lib.chain_gamma_prep.argtypes = [P] * 5 + [I] * 8 + [Fl, Fl, P]
+            lib.chain_gamma_apply.argtypes = [P] * 6 + [I] * 9 + [P]
             lib.chain_gamma_prep.restype = lib.chain_gamma_apply.restype = I
+            lib.chain_gamma_smem.argtypes = [I] * 3
+            lib.chain_gamma_smem.restype = ctypes.c_size_t
         elif name == "first_layer":
             lib.first_layer.argtypes = [P, P, P, P, P, I, I, I, I, I, Fl, P]
             lib.first_layer.restype = I
         elif name == "first_block_deep":
-            lib.first_block_deep.argtypes = [P] * 8 + [I] * 8 + [Fl, P]
+            lib.first_block_deep.argtypes = [P] * 8 + [I] * 9 + [Fl, P]
             lib.first_block_deep.restype = I
+            lib.first_block_deep_smem.argtypes = [I]
+            lib.first_block_deep_smem.restype = ctypes.c_size_t
         else:
             lib.merged_tail.argtypes = [P] * 11 + [I] * 8 + [Fl, P]
             lib.merged_tail.restype = I
@@ -245,9 +309,9 @@ def _gamma_prep(x: torch.Tensor, cv: GammaConv, stream,
     b, H, W, _ = x.shape
     G = torch.empty((b, H, W, cv.co), device=x.device)
     raise_on(_lib("chain_block").chain_gamma_prep(
-        x.data_ptr(), cv.w_prep.data_ptr(), cv.biases.data_ptr(),
+        x.data_ptr(), cv.w_prep_wg.data_ptr(), cv.biases.data_ptr(),
         apre.data_ptr() if apre is not None else None, G.data_ptr(),
-        b, H, W, cv.ci, cv.co, pool[0], pool[1], cv.inv, cv.stab, stream),
+        b, H, W, cv.ci, cv.co, cv.prep_cols, pool[0], pool[1], cv.inv, cv.stab, stream),
         "chain_gamma_prep")
     return G
 
@@ -266,36 +330,53 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
     ms on the FMA units). Design: the
     clone-shared masks are computed once per instance into a scratch G, the
     convT(R * m3) term of the gamma rule is skipped because the relu gate
-    zeroes it, and both launches are 3xTF32 implicit GEMMs on the tensor
-    cores (csrc/conv3x3_tc.cuh): the forward pair as one GEMM over 2*Co
+    zeroes it, and both launches are 3xTF32 implicit GEMMs on Hopper's
+    wgmma (csrc/conv3x3_wgmma.cuh): the forward pair as one GEMM over 2*Co
     interleaved columns, the transposed conv over R * G formed and split
-    once per staged 8-channel slice (asynchronous, double-buffered)."""
+    once per staged 8-channel slice, A from registers, the taps pre-split
+    on the host (``w_prep_wg``, ``w_apply_wg``) and staged by bulk copy
+    (asynchronous, double-buffered)."""
     if R.device.type == "cpu":
         return chain_block_plain(R, xs, convs, apre, pool)
     b, K = R.shape[:2]
     check_cuda("chain_block", R, *xs, *(apre,) if apre is not None else (),
-               *(t for cv in convs for t in (cv.w_prep, cv.w_apply_tc, cv.biases)))
+               *(t for cv in convs for t in (cv.w_prep_wg, cv.w_apply_wg, cv.biases)))
     if (pool is not None and pool[0] != 2) or b > 65535:
         raise ValueError("chain_block: pools must be (2, kw); batch at most 65535")
-    lib = _lib("chain_block")
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
     for j, (x, cv) in enumerate(zip(xs, convs)):
         _, H, W, _ = x.shape
         if tuple(R.shape) != (b, K, H, W, cv.co) or x.shape[-1] != cv.ci:
             raise ValueError("chain_block: relevance / activation shapes disagree")
-        G = _gamma_prep(x, cv, stream)
         last_pool = apre is not None and j == len(convs) - 1
-        kh, kw = pool if last_pool else (1, 1)
-        if last_pool and tuple(apre.shape) != (b, H * kh, W * kw, cv.ci):
+        if last_pool and tuple(apre.shape) != (b, H * pool[0], W * pool[1], cv.ci):
             raise ValueError("chain_block: pool input shape disagrees")
-        out = torch.empty((b, K, H * kh, W * kw, cv.ci), device=R.device)
-        raise_on(lib.chain_gamma_apply(
-            R.data_ptr(), G.data_ptr(), x.data_ptr(), cv.w_apply_tc.data_ptr(),
-            apre.data_ptr() if last_pool else None, out.data_ptr(),
-            b, K, H, W, cv.ci, cv.co, kh, kw, stream), "chain_gamma_apply")
-        R = out
+        G = _gamma_prep(x, cv, stream)
+        R = _gamma_apply(R, G, x, cv, stream, apre if last_pool else None, pool)
     LAUNCHES["chain_block"] += 1
     return R
+
+
+def _gamma_apply(R: torch.Tensor, G: torch.Tensor, x: torch.Tensor, cv: GammaConv, stream,
+                 apre: torch.Tensor | None = None, pool: tuple | None = None) -> torch.Tensor:
+    """One chain_gamma_apply launch: x * convT(R * G) for every clone, routed
+    through the ``pool`` backward to [b, K, H*kh, W*kw, Ci] when ``apre`` is
+    given, else [b, K, H, W, Ci]."""
+    b, K, H, W, _ = R.shape
+    kh, kw = pool if apre is not None else (1, 1)
+    out = torch.empty((b, K, H * kh, W * kw, cv.ci), device=R.device)
+    raise_on(_lib("chain_block").chain_gamma_apply(
+        R.data_ptr(), G.data_ptr(), x.data_ptr(), cv.w_apply_wg.data_ptr(),
+        apre.data_ptr() if apre is not None else None, out.data_ptr(),
+        b, K, H, W, cv.ci, cv.co, cv.apply_cols, kh, kw, stream), "chain_gamma_apply")
+    return out
+
+
+def gamma_smem(cv: GammaConv, H: int) -> tuple:
+    """The dynamic shared memory, bytes, a block of chain_gamma_prep and of
+    chain_gamma_apply takes for cv's layouts at a level of H rows."""
+    lib = _lib("chain_block")
+    return lib.chain_gamma_smem(1, cv.prep_cols, H), lib.chain_gamma_smem(0, cv.apply_cols, H)
 
 
 # ------------------------------------------------------------ first_layer
@@ -378,10 +459,10 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     (csrc/chain_block.cu) writes the clone-shared M = G * route once per
     instance (G = [z_true > 0] / stab(z1 + b2) from relu(a1), route the
     pool's first-argmax mask of relu(apre)); then csrc/first_block_deep.cu
-    runs one block per (16x16 tile, clone, instance), stages R (at its
+    runs one block per (16x8 tile, clone, instance), stages R (at its
     coarse level) and M over the tile plus a 1-pixel halo, takes the
-    transposed conv of R * M over the tile on the tensor cores in 3xTF32
-    (csrc/conv3x3_tc.cuh), applies relu(a1) and the tail multiplier to the
+    transposed conv of R * M over the tile on wgmma in 3xTF32
+    (csrc/conv3x3_wgmma.cuh), applies relu(a1) and the tail multiplier to the
     accumulator fragments and reduces the 3x3 tail taps over the channels;
     it writes the heatmap pixels whose neighbourhood lies in the tile, and a
     second launch adds the tiles' shares of the others in a fixed order, so
@@ -392,7 +473,7 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
     if R.device.type == "cpu":
         return first_block_deep_plain(R, a1, apre, gconv, fl, pool)
     check_cuda("first_block_deep", R, a1, apre, fl.z0, fl.taps,
-               gconv.w_prep, gconv.w_apply_tc, gconv.biases)
+               gconv.w_prep_wg, gconv.w_apply_wg, gconv.biases)
     b, K, Hc, Wc, C = R.shape
     H, W, C0 = a1.shape[1:]
     kh, kw = pool
@@ -403,14 +484,32 @@ def first_block_deep(R: torch.Tensor, a1: torch.Tensor, apre: torch.Tensor,
         raise ValueError("first_block_deep: batch and clones at most 65535")
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
     M = _gamma_prep(a1, gconv, stream, apre=apre, pool=pool)
-    heat = torch.empty((b, K, H, W), device=R.device)
-    rim = torch.empty((b * K * -(-H // 16) * -(-W // 16) * 128,), device=R.device)
-    raise_on(_lib("first_block_deep").first_block_deep(
-        R.data_ptr(), M.data_ptr(), a1.data_ptr(), gconv.w_apply_tc.data_ptr(),
-        fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(), rim.data_ptr(),
-        b, K, H, W, C0, C, kh, kw, fl.stab0, stream), "first_block_deep")
+    heat = _deep_main(R, M, a1, gconv, fl, pool, stream)
     LAUNCHES["first_block_deep"] += 1
     return heat
+
+
+def _deep_main(R: torch.Tensor, M: torch.Tensor, a1: torch.Tensor, gconv: GammaConv,
+               fl: FirstLayer, pool: tuple, stream) -> torch.Tensor:
+    """first_block_deep's own two launches (csrc/first_block_deep.cu: the
+    tiles, then the rim pass) on the prep's M. Returns heatmaps [b, K, H, W]."""
+    b, K = R.shape[:2]
+    H, W, C0 = a1.shape[1:]
+    heat = torch.empty((b, K, H, W), device=R.device)
+    # the tiles' rim shares: 96 floats a 16x8 tile and clone (csrc/first_block_deep.cu)
+    rim = torch.empty((b * K * -(-H // 16) * -(-W // 8) * 96,), device=R.device)
+    raise_on(_lib("first_block_deep").first_block_deep(
+        R.data_ptr(), M.data_ptr(), a1.data_ptr(), gconv.w_apply_wg.data_ptr(),
+        fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(), rim.data_ptr(),
+        b, K, H, W, C0, R.shape[-1], gconv.apply_cols, pool[0], pool[1], fl.stab0, stream),
+        "first_block_deep")
+    return heat
+
+
+def deep_smem(gconv: GammaConv) -> int:
+    """The dynamic shared memory, bytes, a block of first_block_deep's tiles
+    takes for gconv's transposed layout."""
+    return _lib("first_block_deep").first_block_deep_smem(gconv.apply_cols)
 
 
 # ------------------------------------------------------------ merged_tail
@@ -459,7 +558,7 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
     if R.device.type == "cpu":
         return merged_tail_plain(R, xs, convs, apres, a1, fl)
     check_cuda("merged_tail", R, a1, fl.z0, fl.taps, *xs, *apres,
-               *(t for cv in convs for t in (cv.w_prep, cv.w_apply_tc, cv.biases)))
+               *(t for cv in convs for t in (cv.w_prep_wg, cv.w_apply_tc, cv.biases)))
     m = len(convs)
     if m not in (1, 2) or len(xs) != m or len(apres) != m - 1:
         raise ValueError("merged_tail: the kernel takes one or two merged convs")

@@ -61,7 +61,7 @@ def pair_weights(w: torch.Tensor, b: torch.Tensor | None, gamma: float):
     """The kernel's weights for w [Co, Ci, 3, 3] and bias b: the forward pair
     wz1 = w + g*w+, wz3 = w + g*w- interleaved by output channel (row 2o
     wz1's channel o, 2o + 1 wz3's), as ``w_prep`` [ceil(Ci/8), 9, 8, 2*Co]
-    (chain.GammaConv's layout) and, flipped and transposed, as ``w_apply``
+    (chain.slice_taps) and, flipped and transposed, as ``w_apply``
     [Co/4, 9, 8, Ci rounded up to 8] (reduction channel 2o + s, the order of
     the prep's (m1, m3) pairs); and the biases [3, Co] (b1, b0, b2)."""
     co, ci = w.shape[:2]

@@ -66,6 +66,12 @@ def _conv(rng, ci, co, dev):
     ([(100, 128)], 10, 14, (2, 4), 3, 4),         # the apply's N = 104
     ([(128, 64)], 8, 8, (2, 2), 1, 4),
     ([(128, 128)], 12, 8, (2, 2), 1, 4),          # the prep's two column blocks
+    # the main path's levels as the 6s layer-33 request walks them (b=64
+    # there): the apply's N = 128, 104, 64 and the prep's 4 column chunks
+    ([(128, 128), (128, 128)], 8, 8, (2, 2), 2, 4),    # 6s block 4
+    ([(100, 128), (128, 128)], 16, 16, (2, 2), 2, 4),  # 6s block 3
+    ([(64, 100), (100, 100)], 32, 32, (2, 2), 2, 4),   # 6s block 2, C=100
+    ([(64, 64), (64, 64)], 64, 64, None, 2, 4),        # 6s block 1
 ])
 def test_chain_block_kernel_matches_plain(cuda, chans, H, W, pool, b, K):
     """Pools hold an all-tied (zero after relu) window."""
@@ -96,6 +102,42 @@ def test_chain_block_kernel_refuses_unsupported_counts(cuda, ci, co):
     with pytest.raises(ValueError, match="channel counts"):
         chain.chain_block(R, [x], [cv])
     assert chain.LAUNCHES["chain_block"] == n0
+
+
+def _relaid(cv, prep_chunk, apply_cols):
+    """cv with its wgmma taps laid out again in other widths."""
+    import dataclasses
+    pair = (torch.stack([cv.wz1, cv.wz3], dim=1).reshape(2 * cv.co, cv.ci, 3, 3)
+            .permute(2, 3, 1, 0).reshape(9, cv.ci, 2 * cv.co))
+    w_apply = cv.wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, cv.co, cv.ci)
+    return dataclasses.replace(cv, w_prep_wg=chain.wgmma_taps(pair, prep_chunk),
+                               w_apply_wg=chain.wgmma_taps(w_apply, apply_cols))
+
+
+@pytest.mark.parametrize("prep_chunk,apply_cols,takes", [
+    (16, 128, True),       # other widths than the layout's own: still the plain result
+    (24, 64, False),       # a prep chunk without an instance
+    (32, 32, False),       # an apply tile narrower than Ci
+])
+def test_chain_block_kernel_takes_the_layouts_width(cuda, prep_chunk, apply_cols, takes):
+    """The kernels multiply in the widths the host laid the taps out in
+    (GammaConv.prep_cols, apply_cols) and refuse, before any launch, a width
+    they have no instance for."""
+    rng = np.random.default_rng(5)
+    cv = _relaid(_conv(rng, 64, 64, cuda), prep_chunk, apply_cols)
+    assert (cv.prep_cols, cv.apply_cols) == (prep_chunk, apply_cols)
+    x = torch.as_tensor(np.maximum(rng.standard_normal((2, 16, 16, 64)), 0).astype(np.float32),
+                        device=cuda)
+    R = torch.as_tensor(rng.standard_normal((2, 4, 16, 16, 64)).astype(np.float32), device=cuda)
+    apre = torch.as_tensor(rng.standard_normal((2, 32, 32, 64)).astype(np.float32), device=cuda)
+    n0 = chain.LAUNCHES["chain_block"]
+    if not takes:
+        with pytest.raises(ValueError, match="channel counts or shapes"):
+            chain.chain_block(R, [x], [cv], apre, (2, 2))
+        assert chain.LAUNCHES["chain_block"] == n0
+        return
+    got = chain.chain_block(R, [x], [cv], apre, (2, 2))
+    _close(got, chain.chain_block_plain(R, [x], [cv], apre, (2, 2)))
 
 
 @pytest.mark.parametrize("rule,H,C", [("wsquare", 128, 32), ("flat", 64, 8), ("wsquare", 16, 16)])
@@ -185,6 +227,8 @@ def _deep_inputs(rng, dev, b, K, H, W, C0, C, kw, rule):
     (34, 36, 32, 100, 2, "flat", 3, 1),      # the 100-channel level as C
     (20, 24, 8, 8, 2, "wsquare", 1, 4),      # the narrowest C0 and C
     (50, 68, 16, 128, 4, "flat", 3, 4),      # ragged in both directions, C = 128
+    (128, 256, 64, 64, 4, "flat", 1, 4),     # the 6s widths, the flat rule
+    (36, 44, 24, 100, 2, "wsquare", 2, 4),   # C0 = 24 (a 32-wide tile), C = 100
 ])
 def test_first_block_deep_kernel_matches_plain(cuda, H, W, C0, C, kw, rule, b, K):
     args = _deep_inputs(np.random.default_rng(2), cuda, b, K, H, W, C0, C, kw, rule)
@@ -194,10 +238,29 @@ def test_first_block_deep_kernel_matches_plain(cuda, H, W, C0, C, kw, rule, b, K
     _close(got, chain.first_block_deep_plain(*args))
 
 
+@pytest.mark.parametrize("apply_cols,takes", [(64, True), (24, False), (16, False)])
+def test_first_block_deep_kernel_takes_the_layouts_width(cuda, apply_cols, takes):
+    """first_block_deep multiplies in the width of its transposed layout
+    (GammaConv.apply_cols), here wider than C0 = 32, and refuses one without
+    an instance or narrower than C0."""
+    R, a1, apre, gconv, fl, pool = _deep_inputs(np.random.default_rng(7), cuda, 2, 4, 32, 64,
+                                                32, 64, 4, "wsquare")
+    gconv = _relaid(gconv, gconv.prep_cols, apply_cols)
+    n0 = chain.LAUNCHES["first_block_deep"]
+    if not takes:
+        with pytest.raises(ValueError, match="channel counts or shapes"):
+            chain.first_block_deep(R, a1, apre, gconv, fl, pool)
+        assert chain.LAUNCHES["first_block_deep"] == n0
+        return
+    got = chain.first_block_deep(R, a1, apre, gconv, fl, pool)
+    _close(got, chain.first_block_deep_plain(R, a1, apre, gconv, fl, pool))
+
+
 @pytest.mark.parametrize("H,W,C0,C,kw,rule", [
     (128, 256, 64, 64, 4, "wsquare"),        # the 6s widths
     (50, 68, 16, 128, 4, "flat"),            # ragged in both directions
     (18, 20, 16, 8, 2, "wsquare"),           # ragged, (2,2) pool
+    (36, 44, 24, 100, 2, "flat"),            # C0 = 24, C = 100
 ])
 def test_first_block_deep_kernel_is_deterministic(cuda, H, W, C0, C, kw, rule):
     """Runs on the same inputs give the same bits: each heatmap pixel on a
@@ -206,6 +269,28 @@ def test_first_block_deep_kernel_is_deterministic(cuda, H, W, C0, C, kw, rule):
     first = chain.first_block_deep(*args)
     for _ in range(3):
         assert torch.equal(first, chain.first_block_deep(*args))
+
+
+@pytest.mark.parametrize("name,want,other", [
+    ("chain_block", "HGMMA", "HMMA"), ("first_block_deep", "HGMMA", "HMMA"),
+    ("merged_tail", "HMMA", None), ("gamma_nonneg", "HMMA", None)])
+def test_tensor_core_instructions_in_sass(cuda, name, want, other):
+    """chain_block's and first_block_deep's libraries multiply on wgmma
+    (HGMMA in their SASS) and hold no mma.sync (HMMA); merged_tail and
+    gamma_nonneg stay on mma.sync (cuobjdump of the built library)."""
+    import os
+    import re
+    import subprocess
+
+    from drsa_audio_tpu_torch.utils import nvcc
+    lib = nvcc.build([name])[name]
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass)
+    assert ops.count(want) > 0
+    if other is not None:
+        assert ops.count(other) == 0
 
 
 @pytest.mark.parametrize("margin", [1e-5, 1e-6])

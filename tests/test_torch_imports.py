@@ -59,7 +59,7 @@ def _imported_roots(path):
 
 
 def test_chip_smoke_and_port_sources_import_no_jax():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "ablate_chain.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "drsa_audio_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     for p in paths:

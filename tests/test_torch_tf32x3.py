@@ -151,17 +151,19 @@ def test_tf32_rounding():
 
 @pytest.mark.parametrize("ci,co", [(8, 16), (64, 100), (100, 128), (12, 20)])
 def test_tensor_core_tap_layouts(ci, co):
-    """GammaConv.w_prep [ceil(Ci/8), 9, 8, 2Co] interleaves the forward pair
-    (column 2o wz1's channel o, 2o + 1 wz3's) and w_apply_tc [ceil(Co/8), 9,
-    8, Ci rounded up to 8] holds the transposed wz1 (tap (dy, dx) reads
-    wz1[o, i, 2 - dy, 2 - dx]); zeros past the counts."""
+    """The mma.sync kernels' taps: fused_gamma.pair_weights' w_prep
+    [ceil(Ci/8), 9, 8, 2Co] interleaves the forward pair of the conv's
+    GammaConv (column 2o wz1's channel o, 2o + 1 wz3's), and
+    GammaConv.w_apply_tc [ceil(Co/8), 9, 8, Ci rounded up to 8] holds the
+    transposed wz1 (tap (dy, dx) reads wz1[o, i, 2 - dy, 2 - dx]); zeros
+    past the counts."""
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
     rng = np.random.default_rng(ci + co)
     spec = tvgg.LayerSpec("conv", "c", {})
-    cv = chain.prep_inner_weights(
-        {"c": {"weight": t(rng.standard_normal((co, ci, 3, 3))), "bias": t(rng.standard_normal(co))}},
-        spec, {"gamma": 0.3})
+    w, b = t(rng.standard_normal((co, ci, 3, 3))), t(rng.standard_normal(co))
+    cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}}, spec, {"gamma": 0.3})
     wz1, wz3 = cv.wz1.numpy(), cv.wz3.numpy()
-    wp, wa = cv.w_prep.numpy(), cv.w_apply_tc.numpy()
+    wp, wa = fused_gamma.pair_weights(w, b, 0.3)[0].numpy(), cv.w_apply_tc.numpy()
     assert wp.shape == (-(-ci // 8), 9, 8, 2 * co)
     assert wa.shape == (-(-co // 8), 9, 8, -(-ci // 8) * 8)
     for s in range(wp.shape[0]):
@@ -188,8 +190,8 @@ def test_tensor_core_tap_layouts(ci, co):
 
 @pytest.mark.parametrize("ci,co", [(8, 16), (64, 100), (100, 128), (12, 20)])
 def test_gamma_nonneg_tap_layouts(ci, co):
-    """fused_gamma.pair_weights: w_prep as GammaConv's (the interleaved
-    forward pair), w_apply [Co/4, 9, 8, Ci rounded up to 8] the pair flipped
+    """fused_gamma.pair_weights: w_prep the interleaved forward pair
+    (test_tensor_core_tap_layouts), w_apply [Co/4, 9, 8, Ci rounded up to 8] the pair flipped
     and transposed with its rows interleaved as the prep's (m1, m3) pairs
     (reduction channel 2o + s reads wz1 (s = 0) or wz3 (s = 1) at
     [o, i, 2 - dy, 2 - dx]); zeros past the counts; biases (b1, b0, b2)."""
@@ -199,7 +201,7 @@ def test_gamma_nonneg_tap_layouts(ci, co):
     wp, wa, bias3 = (a.numpy() for a in fused_gamma.pair_weights(w, b, 0.3))
     cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}},
                                   tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
-    np.testing.assert_array_equal(wp, cv.w_prep.numpy())
+    assert wp.shape == (-(-ci // 8), 9, 8, 2 * co)
     np.testing.assert_array_equal(bias3, cv.biases.numpy())
     pair = (cv.wz1.numpy(), cv.wz3.numpy())
     assert wa.shape == (co // 4, 9, 8, -(-ci // 8) * 8)
