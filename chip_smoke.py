@@ -8,9 +8,9 @@
    runtime (csrc/audio_runtime.cpp with g++: WAV decode, Telea), and counts
    the tensor-core instructions in the SASS of chain_block,
    first_block_deep, merged_tail and gamma_nonneg (cuobjdump): it fails
-   where chain_block or first_block_deep hold no HGMMA (wgmma) or any HMMA
-   (mma.sync), or merged_tail or gamma_nonneg no HMMA. The build line
-   carries each library's registers, spills and serialised wgmma groups.
+   where any of the four holds no HGMMA (wgmma) or any HMMA (mma.sync). The
+   build line carries each library's registers, spills and serialised
+   wgmma groups.
 2. Serves three requests of 32 clips, one class each, through
    ExplainerService on the GTZAN-3s model at full width (seeded random
    weights and U), with every launch counter set to 0 just before and read
@@ -39,9 +39,10 @@
    of 2 and one request against the default multi-kernel path; one 32-clip
    toy request (8/16 channels, 64x64 mels) the same; then the two launches
    of one 256-clip request held against their plain versions and timed
-   (merged_tail also by launch: its chain_gamma_prep launches, the main
-   kernel and the rest of the wrapper's call on one line,
-   merged_tail_split_*), and that request end to end, by stages and traced,
+   (merged_tail also by launch: its chain_gamma_prep launches and the main
+   kernel, each beside its own bound, the main kernel's shared memory and
+   the rest of the wrapper's call on one line, merged_tail_split_*), and
+   that request end to end, by stages and traced,
    as 4 and 5, with the default request's peak device memory beside its
    own.
 6. The GTZAN-6s flagship at full width (filters 64/64/100/128/128, 6 s clips
@@ -67,8 +68,10 @@
    the same mels by subspace relevances and heatmap correlation (loose);
    the three launches of one 256-clip request held against the plain
    version, run twice (same bits) and timed, whole and by launch (the
-   prep, the apply and the rest of the wrapper's call on one line,
-   gamma_nonneg_split_*), that request's lower segment and peak memory
+   prep and the apply, each beside its own bound with its tap width and
+   shared memory, the rest of the wrapper's call and the host's time to
+   build the layer's taps anew on one line, gamma_nonneg_split_*), that
+   request's lower segment and peak memory
    beside the default path's, and the request traced. Then one 32-clip 6s
    layer-33 request (gamma_nonneg 9 times), its checks, its nine
    launches held and timed the same way, and its lower segment and peak
@@ -313,12 +316,11 @@ def bounds(flops: float, nbytes: float) -> dict:
             "bound_tc_ms": least, "bound_fma_ms": max(flops / PEAK_FLOPS, t_bytes) * 1e3}
 
 
-# The tensor-core instruction each library's SASS must hold: wgmma (HGMMA)
-# and no mma.sync (HMMA) in the chain's main kernels, mma.sync in the two
-# that stay on it.
+# The tensor-core instruction each library's SASS must hold: wgmma (HGMMA),
+# and no mma.sync (HMMA), in all four tensor-core kernels.
 SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 SASS_EXPECTED = {"chain_block": "HGMMA", "first_block_deep": "HGMMA",
-                 "merged_tail": "HMMA", "gamma_nonneg": "HMMA"}
+                 "merged_tail": "HGMMA", "gamma_nonneg": "HGMMA"}
 
 
 def sass_counts(libs: dict) -> dict:
@@ -394,50 +396,75 @@ def gamma_nonneg_work(x, R, w, b, K, **_):
 
 def gamma_nonneg_split_ms(x, R, w, b, K, gamma=0.25, stabilizer=1e-6) -> dict:
     """gamma_nonneg_folded's two launches timed apart on its own inputs
-    (CUDA events, 5 calls each): the prep, the apply, and the rest of the
-    wrapper's call (the weights' re-lay, the allocations, the host's time
-    where the device waits for it) as the whole call less both."""
+    (CUDA events, 5 calls each): the prep and the apply, each beside its own
+    bound (the forward pair; the transposed conv over Co channels, as
+    gamma_nonneg_work), with the tap widths the layouts chose and the shared
+    memory a block; the rest of the wrapper's call (the cached taps' lookup,
+    the allocations, the host's time where the device waits for it) as the
+    whole call less both; and the host's time to build the layer's taps
+    anew (fused_gamma.build_pair_taps, which the cache saves on every call
+    after a layer's first)."""
     import ctypes
+    import time
 
     import torch
     from drsa_audio_tpu_torch.xai.lrp import fused_gamma
 
-    lib = fused_gamma._lib()
     n, ci, H, W = x.shape
     co = w.shape[0]
-    wf, wt, bias3 = fused_gamma.pair_weights(w, b, gamma)
+    taps = fused_gamma.pair_taps(w, b, gamma)
     x, R = x.contiguous(), R.contiguous()
-    M = torch.empty((n, H, W, 2 * co), device=x.device)
-    out = torch.empty((K * n, ci, H, W), device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    inv = float(np.float32(1.0 / (2.0 + gamma)))
-    prep = lambda: lib.gamma_nonneg_prep(                                # noqa: E731
-        x.data_ptr(), wf.data_ptr(), bias3.data_ptr(), M.data_ptr(), n, H, W, ci, co, inv,
-        float(stabilizer), stream)
-    apply = lambda: lib.gamma_nonneg_apply(                              # noqa: E731
-        R.data_ptr(), M.data_ptr(), x.data_ptr(), wt.data_ptr(), out.data_ptr(), n, K, H, W,
-        ci, co, stream)
-    if prep() or apply():
-        raise AssertionError("gamma_nonneg: a timed launch was refused")
+    M = fused_gamma._prep(x, taps, stabilizer, stream)
+    prep = bounds(2.0 * n * H * W * 9 * ci * 2 * co,
+                  4.0 * (x.numel() + 2 * w.numel() + 3 * co + M.numel()))
+    apply = bounds(2.0 * K * n * H * W * 9 * co * ci,
+                   4.0 * (R.numel() + M.numel() + x.numel() + 2 * w.numel() + K * n * ci * H * W))
     whole = cuda_ms(lambda: fused_gamma.gamma_nonneg_folded(x, R, w, b, K, gamma, stabilizer), 5)
-    out_ms = {"prep_ms": cuda_ms(prep, 5), "apply_ms": cuda_ms(apply, 5), "ms": whole}
-    out_ms["rest_ms"] = whole - out_ms["prep_ms"] - out_ms["apply_ms"]
-    return out_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_gamma.build_pair_taps(w, b, gamma)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    out = {"level": [H, W], "ci": ci, "co": co, "prep_cols": taps.prep_cols,
+           "apply_cols": taps.apply_cols,
+           "prep_ms": cuda_ms(lambda: fused_gamma._prep(x, taps, stabilizer, stream), 5),
+           "prep_bound_ms": prep["bound_ms"],
+           "apply_ms": cuda_ms(lambda: fused_gamma._apply(R, M, x, taps, K, stream), 5),
+           "apply_bound_ms": apply["bound_ms"], "ms": whole, "taps_build_host_ms": build_ms,
+           **dict(zip(("prep_smem_bytes", "apply_smem_bytes"), fused_gamma.gamma_smem(taps, H)))}
+    out["rest_ms"] = whole - out["prep_ms"] - out["apply_ms"]
+    return out
 
 
 def merged_tail_split_ms(R, xs, convs, apres, a1, fl) -> dict:
     """merged_tail's launches timed apart on its own inputs (CUDA events, 5
     calls each): the chain_gamma_prep launches together (one or two), the
-    main kernel on their output, and the rest of the wrapper's call (checks,
-    allocations, the host's time where the device waits for it) as the
-    whole call less both."""
+    main kernel on their output, each beside its own bound (the preps'
+    forward pairs; the K transposed convs and the tail, as
+    merged_tail_work), with the main kernel's shared memory a block; and the
+    rest of the wrapper's call (checks, allocations, the host's time where
+    the device waits for it) as the whole call less both."""
     from drsa_audio_tpu_torch.xai.lrp import chain
 
+    b, k = R.shape[:2]
+    H, W, C = a1.shape[1:]
     preps = chain._merged_preps(xs, convs, apres)
+    flops, nbytes = merged_tail_work(R, xs, convs, apres, a1, fl)
+    prep_flops = sum(4.0 * b * x.shape[1] * x.shape[2] * cv.ci * cv.co * 9
+                     for x, cv in zip(xs, convs))
+    prep_bytes = 4.0 * (sum(x.numel() + 2 * cv.wz1.numel() + 3 * cv.co for x, cv in zip(xs, convs))
+                        + sum(a.numel() for a in apres) + sum(p.numel() for p in preps
+                                                              if p is not None))
+    main_bytes = 4.0 * (R.numel() + a1.numel() + fl.z0.numel() + fl.taps.numel() + b * k * H * W
+                        + sum(x.numel() + cv.wz1.numel() for x, cv in zip(xs, convs))
+                        + sum(p.numel() for p in preps if p is not None))
     whole = cuda_ms(lambda: chain.merged_tail(R, xs, convs, apres, a1, fl), 5)
     out = {"prep_ms": cuda_ms(lambda: chain._merged_preps(xs, convs, apres), 5),
+           "prep_bound_ms": bounds(prep_flops, prep_bytes)["bound_ms"],
            "main_ms": cuda_ms(lambda: chain._merged_main(R, xs, convs, a1, fl, preps), 5),
-           "ms": whole}
+           "main_bound_ms": bounds(flops - prep_flops, main_bytes)["bound_ms"],
+           "main_smem_bytes": chain.merged_smem(convs), "ms": whole}
     out["rest_ms"] = whole - out["prep_ms"] - out["main_ms"]
     return out
 

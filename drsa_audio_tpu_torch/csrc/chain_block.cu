@@ -89,8 +89,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "conv3x3_wgmma.cuh"
 #include "lrp_common.cuh"
 
@@ -116,23 +114,6 @@ struct Geo {
   // split in place into hi and lo)
   static constexpr int STAGE = TAPS + 2 * A;
 };
-
-// This lane's ldmatrix rows for its warp's 16 rows of each of warpgroup
-// wgi's m64 tiles (tile wgi * MT + i holds tile rows 8 (wgi * MT + i) ..
-// + 7): tile pixel m at (m / TW, m % TW), region offset (m / TW) * RW + m % TW.
-// Returns how many of them hold image rows; a warpgroup with none skips its
-// products.
-template <int MT>
-__device__ __forceinline__ int tile_rows(int (&lrow)[MT], int wgi, int h0, int H) {
-  const int wq = (threadIdx.x >> 5) & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    lrow[i] = tc::lane_row([&](int r) {
-      const int m = (wgi * MT + i) * 64 + wq * 16 + r;
-      return (m / TW) * RW + m % TW;
-    });
-  return min(MT, max(0, (H - h0 - 8 * MT * wgi + 7) / 8));
-}
 
 // lrp::route for four neighbouring channels: the first maximum of relu(a)
 // over a kh x kw pool window in row-major order (strict >, an all-tied
@@ -183,7 +164,7 @@ gamma_prep_wg(const float* __restrict__ x,     // [b, H, W, Ci]
   const float* xn = x + (size_t)n * H * W * Ci;
   const float* wb = w + (size_t)blockIdx.y * nsl * TAPS;
   int lrow[MT];
-  const int nt = tile_rows(lrow, wgi, h0, H);
+  const int nt = wg::tile_rows<MT, TW, RW>(lrow, wgi, h0, H);
   float acc[MT][BN / 2] = {};
   if (threadIdx.x == 0) {
     wg::bar_init(&bars[0]);
@@ -294,7 +275,7 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
   const float* Rn = R + img * H * W * Co;
   const float* Gn = G + (size_t)n * H * W * Co;
   int lrow[MT];
-  const int nt = tile_rows(lrow, wgi, h0, H);
+  const int nt = wg::tile_rows<MT, TW, RW>(lrow, wgi, h0, H);
   float acc[MT][BN / 2] = {};
   if (threadIdx.x == 0) {
     wg::bar_init(&bars[0]);
@@ -369,39 +350,6 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
 template <int BN, int MT>
 constexpr size_t smem_bytes() { return sizeof(float) * (BARS + 2 * Geo<BN, MT>::STAGE); }
 
-template <int N>
-using ic = std::integral_constant<int, N>;
-
-// f(BN, MT) for the prep's column chunk of BN columns (the width the host
-// laid the taps out in, xai/lrp/chain.py prep_chunk) at a level of H rows;
-// no for a width without an instance.
-template <class F, class R>
-R prep_tile(int BN, int H, F f, R no) {
-  const bool tall = H >= 32;
-  switch (BN) {
-    case 16: return tall ? f(ic<16>{}, ic<2>{}) : f(ic<16>{}, ic<1>{});
-    case 32: return tall ? f(ic<32>{}, ic<2>{}) : f(ic<32>{}, ic<1>{});
-    default: return no;
-  }
-}
-
-// f(BN, MT) for the apply's one tile of BN columns (the width of the host's
-// layout, chain.py wg_cols) at a level of H rows; no for a width without an
-// instance.
-template <class F, class R>
-R apply_tile(int BN, int H, F f, R no) {
-  const bool tall = H >= 32;
-  switch (BN) {
-    case 8: return tall ? f(ic<8>{}, ic<2>{}) : f(ic<8>{}, ic<1>{});
-    case 16: return tall ? f(ic<16>{}, ic<2>{}) : f(ic<16>{}, ic<1>{});
-    case 32: return tall ? f(ic<32>{}, ic<2>{}) : f(ic<32>{}, ic<1>{});
-    case 64: return f(ic<64>{}, ic<1>{});
-    case 104: return f(ic<104>{}, ic<1>{});
-    case 128: return f(ic<128>{}, ic<1>{});
-    default: return no;
-  }
-}
-
 template <int BN, int MT>
 cudaError_t launch_prep(int b, cudaStream_t st, const float* x, const float* w,
                         const float* bias, const float* apre, float* G, int H, int W, int Ci,
@@ -445,7 +393,7 @@ int chain_gamma_prep(const float* x, const float* w, const float* bias,
                      int Co, int BN, int kh, int kw, float inv, float stab, void* stream) {
   if (!takes(Ci) || !takes(Co) || !tc::aligned16(x) || !tc::aligned16(w))
     return cudaErrorInvalidValue;
-  return prep_tile(BN, H, [&](auto bn, auto mt) {
+  return wg::prep_tile(BN, H, [&](auto bn, auto mt) {
     return launch_prep<decltype(bn)::value, decltype(mt)::value>(
         b, (cudaStream_t)stream, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
   }, cudaErrorInvalidValue);
@@ -463,7 +411,7 @@ int chain_gamma_apply(const float* R, const float* G, const float* x,
   if (!takes(Ci) || !takes(Co) || BN < Ci || !tc::aligned16(R) || !tc::aligned16(G) ||
       !tc::aligned16(wt) || !tc::aligned16(x) || !tc::aligned16(out))
     return cudaErrorInvalidValue;
-  return apply_tile(BN, H, [&](auto bn, auto mt) {
+  return wg::apply_tile(BN, H, [&](auto bn, auto mt) {
     return launch_apply<decltype(bn)::value, decltype(mt)::value>(
         b, (cudaStream_t)stream, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
   }, cudaErrorInvalidValue);
@@ -476,7 +424,7 @@ size_t chain_gamma_smem(int prep, int BN, int H) {
   const auto bytes = [](auto bn, auto mt) {
     return smem_bytes<decltype(bn)::value, decltype(mt)::value>();
   };
-  return prep ? prep_tile(BN, H, bytes, size_t{0}) : apply_tile(BN, H, bytes, size_t{0});
+  return prep ? wg::prep_tile(BN, H, bytes, size_t{0}) : wg::apply_tile(BN, H, bytes, size_t{0});
 }
 
 }  // extern "C"

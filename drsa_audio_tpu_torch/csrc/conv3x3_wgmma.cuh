@@ -1,8 +1,8 @@
-// The wgmma core of chain_block.cu and first_block_deep.cu: a 3x3 SAME conv,
-// or its transpose, as an implicit GEMM in 3xTF32 on Hopper's asynchronous
-// warpgroup product (wgmma.mma_async m64nNk8.f32.tf32.tf32), beside the
-// mma.sync core of conv3x3_tc.cuh (merged_tail.cu, gamma_nonneg.cu), whose
-// staging and A-operand pieces it reuses.
+// The wgmma core of the chain's kernels (chain_block.cu, first_block_deep.cu,
+// merged_tail.cu) and of gamma_nonneg.cu: a 3x3 SAME conv, or its
+// transpose, as an implicit GEMM in 3xTF32 on Hopper's asynchronous
+// warpgroup product (wgmma.mma_async m64nNk8.f32.tf32.tf32), fed by the
+// staging and A-operand pieces of conv3x3_tc.cuh.
 //
 // Product. out[m, n] = sum_{tap, c} A[m + off(tap), c] * w[tap][c][n] as in
 // conv3x3_tc.cuh; a warpgroup (4 warps, 128 threads) multiplies one m64
@@ -34,14 +34,19 @@
 // the next tap's A loads (slice below). FRESH (the prep, whose epilogue
 // decides signs): a group writes a scratch fragment (scale-d = 0 on its
 // first product), then added to the accumulator in f32 with round-to-
-// nearest, as conv3x3_tc.cuh's FRESH; the transposed convs accumulate in
-// the core. A branch between a group's fence and commit makes ptxas
-// serialise every group of the kernel (its C7520 warning), so warpgroups
-// skip whole slices, never single products.
+// nearest: the tensor core adds a product to its accumulator with
+// truncation, so sums accumulated in it drift by up to ~2^-23 of the running
+// sum per product, one way, and on the card that flipped the sign of a
+// z_true at 6e-7 of the map's maximum. The transposed convs, linear in R,
+// decide nothing and accumulate in the core. A branch between a group's
+// fence and commit makes ptxas serialise every group of the kernel (its
+// C7520 warning), so warpgroups skip whole slices, never single products.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "conv3x3_tc.cuh"
 
@@ -83,6 +88,33 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// asynchronous-proxy accesses (bulk copies, wgmma) of the same bytes, once
+// a barrier has passed: for shared memory that a kernel reuses from one
+// pipeline's regions for another's taps.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// This lane's ldmatrix rows for its warp's 16 rows of each of warpgroup
+// wgi's MT m64 tiles over a tile TW pixels wide, staged with its halo at
+// row stride RW (tile wgi * MT + i holds tile rows 64 (wgi * MT + i) / TW
+// ..; tile pixel m at (m / TW, m % TW), region offset (m / TW) * RW + m %
+// TW). Returns how many of the tiles hold image rows of a tile whose first
+// row is h0 of H; a warpgroup with none skips its products.
+template <int MT, int TW, int RW>
+__device__ __forceinline__ int tile_rows(int (&lrow)[MT], int wgi, int h0, int H) {
+  const int wq = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    lrow[i] = tc::lane_row([&](int r) {
+      const int m = (wgi * MT + i) * 64 + wq * 16 + r;
+      return (m / TW) * RW + m % TW;
+    });
+  constexpr int R64 = 64 / TW;                    // tile rows an m64 tile
+  return min(MT, max(0, (H - h0 - R64 * MT * wgi + R64 - 1) / R64));
 }
 
 // ---------------------------------------------------------------- mbarrier
@@ -321,6 +353,42 @@ __device__ __forceinline__ void slice(float (&acc)[MT][BN / 2], uint32_t hi, uin
   if (FRESH) {
 #pragma unroll
     for (int j = 10 - DEPTH; j < 9; ++j) drain(j);
+  }
+}
+
+// ------------------------------------------------------------- dispatch
+
+template <int N>
+using ic = std::integral_constant<int, N>;
+
+// f(BN, MT) for a prep's column chunk of BN columns (the width the host
+// laid the forward pair out in, xai/lrp/chain.py prep_chunk) at a level of
+// H rows: two m64 tiles a warpgroup (a 32 x 8 pixel tile) where the level
+// is 32 rows or more, else one; no for a width without an instance.
+template <class F, class R>
+R prep_tile(int BN, int H, F f, R no) {
+  const bool tall = H >= 32;
+  switch (BN) {
+    case 16: return tall ? f(ic<16>{}, ic<2>{}) : f(ic<16>{}, ic<1>{});
+    case 32: return tall ? f(ic<32>{}, ic<2>{}) : f(ic<32>{}, ic<1>{});
+    default: return no;
+  }
+}
+
+// f(BN, MT) for an apply's one tile of BN columns (chain.py wg_cols) at a
+// level of H rows: two m64 tiles a warpgroup up to 32 columns on a level of
+// 32 rows or more, else one; no for a width without an instance.
+template <class F, class R>
+R apply_tile(int BN, int H, F f, R no) {
+  const bool tall = H >= 32;
+  switch (BN) {
+    case 8: return tall ? f(ic<8>{}, ic<2>{}) : f(ic<8>{}, ic<1>{});
+    case 16: return tall ? f(ic<16>{}, ic<2>{}) : f(ic<16>{}, ic<1>{});
+    case 32: return tall ? f(ic<32>{}, ic<2>{}) : f(ic<32>{}, ic<1>{});
+    case 64: return f(ic<64>{}, ic<1>{});
+    case 104: return f(ic<104>{}, ic<1>{});
+    case 128: return f(ic<128>{}, ic<1>{});
+    default: return no;
   }
 }
 

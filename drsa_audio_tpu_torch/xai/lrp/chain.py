@@ -100,18 +100,7 @@ def _conv_t_nhwc(g, w):
 
 # ----------------------------------------------------------- weight prep
 
-SLICE = 8     # the tensor-core kernels' reduction slice (csrc/conv3x3_tc.cuh CC)
-
-
-def slice_taps(taps: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """Taps [9, Kr, N] (tap, reduction channel, output channel) as
-    [ceil(Kr/8), 9, 8, n_pad], zero-padded: one staged 8-channel slice of the
-    reduction is one contiguous block."""
-    _, kr, n = taps.shape
-    kp = -(-kr // SLICE) * SLICE
-    out = taps.new_zeros((9, kp, n_pad))
-    out[:, :kr, :n] = taps
-    return out.reshape(9, kp // SLICE, SLICE, n_pad).transpose(0, 1).contiguous()
+SLICE = 8     # the wgmma kernels' reduction slice (csrc/conv3x3_tc.cuh CC)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -166,15 +155,13 @@ class GammaConv:
     interleaved (column 2j wz1's output channel j, 2j + 1 wz3's), pre-split
     by ``wgmma_taps`` in column chunks of ``prep_chunk(2*Co)``
     (chain_gamma_prep); ``w_apply_wg`` the transposed wz1, pre-split in one
-    chunk of ``wg_cols(Ci)`` (chain_gamma_apply, first_block_deep); and
-    ``w_apply_tc`` [ceil(Co/8), 9, 8, Ci rounded up to 8] the transposed wz1
-    unsplit (merged_tail's mma.sync kernel)."""
+    chunk of ``wg_cols(Ci)`` (chain_gamma_apply, first_block_deep,
+    merged_tail)."""
     wz1: torch.Tensor
     wz3: torch.Tensor
     biases: torch.Tensor
     inv: float
     stab: float
-    w_apply_tc: torch.Tensor
     w_prep_wg: torch.Tensor
     w_apply_wg: torch.Tensor
 
@@ -213,7 +200,6 @@ def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
         wz1=wz1, wz3=wz3, biases=biases.contiguous(),
         inv=float(np.float32(1.0 / (2.0 + g))),
         stab=float(kwargs.get("stabilizer", 1e-6)),
-        w_apply_tc=slice_taps(w_apply, -(-ci // 8) * 8),
         w_prep_wg=wgmma_taps(pair, prep_chunk(2 * co)),
         w_apply_wg=wgmma_taps(w_apply, wg_cols(ci)))
 
@@ -294,8 +280,10 @@ def _lib(name: str):
             lib.first_block_deep_smem.argtypes = [I]
             lib.first_block_deep_smem.restype = ctypes.c_size_t
         else:
-            lib.merged_tail.argtypes = [P] * 11 + [I] * 8 + [Fl, P]
+            lib.merged_tail.argtypes = [P] * 13 + [I] * 10 + [Fl, P]
             lib.merged_tail.restype = I
+            lib.merged_tail_smem.argtypes = [I] * 2
+            lib.merged_tail_smem.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -543,22 +531,26 @@ def merged_tail(R: torch.Tensor, xs: Sequence[torch.Tensor],
     (launched :1155). Bound on an H100: operations (per merged conv two
     forward convs per instance and one transposed conv per clone; the 3x3
     tail per clone). Design: chain_gamma_prep writes the clone-shared
-    multipliers once per instance, then one block per (32x32 heatmap tile,
-    clone, instance) walks the merged convs with a halo that grows one pixel
-    per level on the way up and recomputes the overlap, each transposed
-    conv a 3xTF32 implicit GEMM on the tensor cores (csrc/conv3x3_tc.cuh)
-    into shared memory, then scatters each coarse pixel onto its 4x4
-    heatmap patch and adds the patches in a fixed order (see the source).
+    multipliers once per instance, and a short pass the tail's factor F
+    (the pool route times relu_gate(a1) / stab(z0)), then one block per
+    (32x32 heatmap tile, clone, instance) walks the merged convs with a
+    halo that grows one pixel per level on the way up and recomputes the
+    overlap, each transposed
+    conv a 3xTF32 implicit GEMM on Hopper's wgmma (csrc/conv3x3_wgmma.cuh,
+    the pre-split taps ``w_apply_wg`` staged by bulk copy) into shared
+    memory, then scatters each coarse pixel onto its 4x4 heatmap patch and
+    adds the patches in a fixed order (see the source).
 
     Allocates, on the device: G [b, h, w, Co] of the top conv (two merged
     convs only), M [b, 2h, 2w, C] of the bottom conv with the pool route
-    between the two folded in (G alone for one conv), and the heatmaps
-    [b, K, H, W]. No per-clone relevance between the merged levels is
+    between the two folded in (G alone for one conv), the first-layer
+    tail's factor once per instance (F [b, H/2, W/2, C] and its winners, a
+    byte a channel) and the heatmaps [b, K, H, W]. No per-clone relevance between the merged levels is
     written to device memory."""
     if R.device.type == "cpu":
         return merged_tail_plain(R, xs, convs, apres, a1, fl)
     check_cuda("merged_tail", R, a1, fl.z0, fl.taps, *xs, *apres,
-               *(t for cv in convs for t in (cv.w_prep_wg, cv.w_apply_tc, cv.biases)))
+               *(t for cv in convs for t in (cv.w_prep_wg, cv.w_apply_wg, cv.biases)))
     m = len(convs)
     if m not in (1, 2) or len(xs) != m or len(apres) != m - 1:
         raise ValueError("merged_tail: the kernel takes one or two merged convs")
@@ -591,20 +583,32 @@ def _merged_preps(xs, convs, apres) -> tuple:
 
 
 def _merged_main(R, xs, convs, a1, fl, preps) -> torch.Tensor:
-    """merged_tail's main launch (csrc/merged_tail.cu) on the preps' G and M."""
+    """merged_tail's own two launches (csrc/merged_tail.cu: the tail's
+    factor, then the main kernel) on the preps' G and M."""
     (G, M), m = preps, len(convs)
     b, K = R.shape[:2]
     H, W, C = a1.shape[1:]
     top, bottom = convs[0], convs[-1]
-    top_ptrs = ((G.data_ptr(), xs[0].data_ptr(), top.w_apply_tc.data_ptr()) if m == 2
+    top_ptrs = ((G.data_ptr(), xs[0].data_ptr(), top.w_apply_wg.data_ptr()) if m == 2
                 else (None, None, None))        # not read with one merged conv
     heat = torch.empty((b, K, H, W), device=R.device)
+    # the tail's factor once per instance: f, and the four winners of four
+    # channels packed in an int32 (csrc/merged_tail.cu merged_tail_factor)
+    fq = torch.empty((b, H // 2, W // 2, C), device=R.device)
+    wins = torch.empty((b, H // 2, W // 2, C // 4), dtype=torch.int32, device=R.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
     raise_on(_lib("merged_tail").merged_tail(
-        R.data_ptr(), *top_ptrs, M.data_ptr(), xs[-1].data_ptr(), bottom.w_apply_tc.data_ptr(),
-        a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(),
-        b, K, H, W, C, bottom.co, top.co, m, fl.stab0, stream), "merged_tail")
+        R.data_ptr(), *top_ptrs, M.data_ptr(), xs[-1].data_ptr(), bottom.w_apply_wg.data_ptr(),
+        a1.data_ptr(), fl.z0.data_ptr(), fl.taps.data_ptr(), heat.data_ptr(), fq.data_ptr(),
+        wins.data_ptr(), b, K, H, W, C, bottom.co, top.co, m, top.apply_cols, bottom.apply_cols,
+        fl.stab0, stream), "merged_tail")
     return heat
+
+
+def merged_smem(convs) -> int:
+    """The dynamic shared memory, bytes, a block of merged_tail's main
+    kernel takes for these merged convs."""
+    return _lib("merged_tail").merged_tail_smem(convs[-1].ci, int(len(convs) == 2))
 
 
 # ------------------------------------------------------------- host plan

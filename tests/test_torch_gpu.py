@@ -273,11 +273,11 @@ def test_first_block_deep_kernel_is_deterministic(cuda, H, W, C0, C, kw, rule):
 
 @pytest.mark.parametrize("name,want,other", [
     ("chain_block", "HGMMA", "HMMA"), ("first_block_deep", "HGMMA", "HMMA"),
-    ("merged_tail", "HMMA", None), ("gamma_nonneg", "HMMA", None)])
+    ("merged_tail", "HGMMA", "HMMA"), ("gamma_nonneg", "HGMMA", "HMMA")])
 def test_tensor_core_instructions_in_sass(cuda, name, want, other):
-    """chain_block's and first_block_deep's libraries multiply on wgmma
-    (HGMMA in their SASS) and hold no mma.sync (HMMA); merged_tail and
-    gamma_nonneg stay on mma.sync (cuobjdump of the built library)."""
+    """The four tensor-core kernels' libraries multiply on wgmma (HGMMA in
+    their SASS) and hold no mma.sync (HMMA) (cuobjdump of the built
+    library)."""
     import os
     import re
     import subprocess
@@ -437,6 +437,26 @@ def test_merged_tail_kernel_refuses_unsupported_counts(cuda):
     assert chain.LAUNCHES["merged_tail"] == n0
 
 
+@pytest.mark.parametrize("m,apply_cols,takes", [(2, 32, True), (1, 32, True), (2, 64, False),
+                                               (1, 16, False)])
+def test_merged_tail_kernel_takes_the_layouts_width(cuda, m, apply_cols, takes):
+    """merged_tail multiplies in the width of its convs' transposed layouts
+    (GammaConv.apply_cols, the 3s C = 32 here) and refuses, before any
+    launch, a width it has no instance for."""
+    R, xs, convs, apres, a1, fl = _merged_inputs(np.random.default_rng(9), cuda, 2, 4, 64, 64,
+                                                 32, 64, m, "wsquare")
+    convs = [_relaid(cv, cv.prep_cols, apply_cols) for cv in convs]
+    assert all(cv.apply_cols == apply_cols for cv in convs)
+    n0 = chain.LAUNCHES["merged_tail"]
+    if not takes:
+        with pytest.raises(ValueError, match="channel counts or shapes"):
+            chain.merged_tail(R, xs, convs, apres, a1, fl)
+        assert chain.LAUNCHES["merged_tail"] == n0
+        return
+    got = chain.merged_tail(R, xs, convs, apres, a1, fl)
+    _close(got, chain.merged_tail_plain(R, xs, convs, apres, a1, fl))
+
+
 @pytest.mark.parametrize("layer", [10, 7])
 def test_service_merged_on_card_matches_default_path(cuda, monkeypatch, layer):
     """The 3s service with the merged-tail switch on: one chain_block and one
@@ -547,7 +567,6 @@ def test_gamma_nonneg_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
                         device=cuda)
     w = torch.as_tensor((rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
                         .astype(np.float32), device=cuda)
-    wf, _, bias3 = fused_gamma.pair_weights(w, torch.zeros(co, device=cuda), gamma)
     inv = float(np.float32(1.0 / (2.0 + gamma)))
     x64 = x.double()
     conv64 = lambda wt: torch.nn.functional.conv2d(x64, wt.double(), padding=1)  # noqa: E731
@@ -561,16 +580,12 @@ def test_gamma_nonneg_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
           torch.as_tensor(rng.integers(0, W, co), device=cuda))
     sign = 1.0 - 2.0 * (o % 2).double()
     bias = (-c[at] + sign * margin * S[at]).float()
-    _, _, bias3 = fused_gamma.pair_weights(w, bias, gamma)
-    b1, b0, b2 = (v.double() for v in bias3)
+    taps = fused_gamma.build_pair_taps(w, bias, gamma)
+    assert taps.inv == inv
+    b1, b0, b2 = (v.double() for v in taps.biases)
     z_true = c[at] + b0
     assert ((z_true * sign) > 0.5 * margin * S[at]).all()     # planted, after the f32 bias
-    M = torch.empty((b, H, W, 2 * co), device=cuda)
-    err = fused_gamma._lib().gamma_nonneg_prep(
-        x.data_ptr(), wf.data_ptr(), bias3.data_ptr(),
-        M.data_ptr(), b, H, W, ci, co, inv, stab,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    assert err == 0
+    M = fused_gamma._prep(x, taps, stab, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     torch.cuda.synchronize()
     m1, m3 = (M[at[0], at[2], at[3], 2 * o + s].double() for s in (0, 1))
     pos, neg = z_true > 0, z_true < 0
@@ -585,6 +600,39 @@ def test_gamma_nonneg_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
     for got, den, scale, sel in ((m1, den1, S1, pos), (m3, den3, S3, neg)):
         err = (1.0 / got[sel] - den[sel]).abs()
         assert (err <= 1e-4 * den[sel].abs() + 1e-6 * scale[sel]).all(), err.max().item()
+
+
+@pytest.mark.parametrize("prep_chunk,apply_cols,takes", [
+    (16, 128, True),       # other widths than the layout's own: still the plain result
+    (24, 64, False),       # a prep chunk without an instance
+    (32, 32, False),       # an apply tile narrower than Ci
+])
+def test_gamma_nonneg_kernel_takes_the_layouts_width(cuda, prep_chunk, apply_cols, takes,
+                                                     monkeypatch):
+    """gamma_nonneg's launches multiply in the widths of the layer's cached
+    layouts (PairTaps.prep_cols, apply_cols) and refuse, before any launch,
+    a width they have no instance for."""
+    import dataclasses
+
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    x, R, w, bias = _gamma_inputs(np.random.default_rng(6), 2, 4, 64, 64, 16, 16, cuda)
+    own = fused_gamma.build_pair_taps(w, bias, 0.3)
+    pair = (torch.stack([w + 0.3 * w.clamp(min=0), w + 0.3 * w.clamp(max=0)], dim=1)
+            .reshape(128, 64, 3, 3))
+    taps = dataclasses.replace(
+        own, w_prep_wg=chain.wgmma_taps(pair.permute(2, 3, 1, 0).reshape(9, 64, 128), prep_chunk),
+        w_apply_wg=chain.wgmma_taps(pair.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 128, 64),
+                                    apply_cols))
+    assert (taps.prep_cols, taps.apply_cols) == (prep_chunk, apply_cols)
+    monkeypatch.setattr(fused_gamma, "pair_taps", lambda *_: taps)
+    n0 = fused_gamma.LAUNCHES["gamma_nonneg"]
+    if not takes:
+        with pytest.raises(ValueError, match="channel counts or shapes"):
+            fused_gamma.gamma_nonneg_folded(x, R, w, bias, 4, gamma=0.3, stabilizer=1e-7)
+        assert fused_gamma.LAUNCHES["gamma_nonneg"] == n0
+        return
+    got = fused_gamma.gamma_nonneg_folded(x, R, w, bias, 4, gamma=0.3, stabilizer=1e-7)
+    _close(got, fused_gamma.gamma_nonneg_folded_plain(x, R, w, bias, 4, 0.3, 1e-7))
 
 
 @pytest.mark.parametrize("ci,co", [(8, 12), (6, 16), (136, 128), (64, 136)])

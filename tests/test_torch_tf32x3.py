@@ -1,10 +1,11 @@
-"""The arithmetic of the tensor-core chain kernels (csrc/conv3x3_tc.cuh) on
-the CPU: every product of the gamma conv's forward pair and transposed conv
-in 3xTF32 (each operand split into hi = tf32(x) and lo = tf32(x - hi), the
+"""The arithmetic of the tensor-core kernels (csrc/conv3x3_wgmma.cuh) on the
+CPU: every product of the gamma conv's forward pair and transposed conv in
+3xTF32 (each operand split into hi = tf32(x) and lo = tf32(x - hi), the
 product summed as lo*hi + hi*lo + hi*hi), held against pure f32 on the
 inputs that the port's chain records, for the bridged 3s model and a small
 model of the 6s topology ((2,4) pool above a two-conv first block, a
-100-channel level). Also the re-laid taps the kernels stage, by index.
+100-channel level); and gamma_nonneg's two launches as they index their
+pre-split taps (the layouts themselves: test_torch_wgmma_layout.py).
 
 The split is what the emulation models; the card's tensor cores also add
 with truncation, which the prep's sign decisions avoid by summing each
@@ -149,98 +150,52 @@ def test_tf32_rounding():
     assert ((h - y).abs() <= 2.0**-11 * y.abs()).all()
 
 
-@pytest.mark.parametrize("ci,co", [(8, 16), (64, 100), (100, 128), (12, 20)])
-def test_tensor_core_tap_layouts(ci, co):
-    """The mma.sync kernels' taps: fused_gamma.pair_weights' w_prep
-    [ceil(Ci/8), 9, 8, 2Co] interleaves the forward pair of the conv's
-    GammaConv (column 2o wz1's channel o, 2o + 1 wz3's), and
-    GammaConv.w_apply_tc [ceil(Co/8), 9, 8, Ci rounded up to 8] holds the
-    transposed wz1 (tap (dy, dx) reads wz1[o, i, 2 - dy, 2 - dx]); zeros
-    past the counts."""
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
-    rng = np.random.default_rng(ci + co)
-    spec = tvgg.LayerSpec("conv", "c", {})
-    w, b = t(rng.standard_normal((co, ci, 3, 3))), t(rng.standard_normal(co))
-    cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}}, spec, {"gamma": 0.3})
-    wz1, wz3 = cv.wz1.numpy(), cv.wz3.numpy()
-    wp, wa = fused_gamma.pair_weights(w, b, 0.3)[0].numpy(), cv.w_apply_tc.numpy()
-    assert wp.shape == (-(-ci // 8), 9, 8, 2 * co)
-    assert wa.shape == (-(-co // 8), 9, 8, -(-ci // 8) * 8)
-    for s in range(wp.shape[0]):
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            for c in range(8):
-                i = s * 8 + c
-                if i < ci:
-                    np.testing.assert_array_equal(wp[s, tap, c, 0::2], wz1[:, i, dy, dx])
-                    np.testing.assert_array_equal(wp[s, tap, c, 1::2], wz3[:, i, dy, dx])
-                else:
-                    assert not wp[s, tap, c].any()
-    for s in range(wa.shape[0]):
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            for c in range(8):
-                o = s * 8 + c
-                if o < co:
-                    np.testing.assert_array_equal(wa[s, tap, c, :ci], wz1[o, :, 2 - dy, 2 - dx])
-                    assert not wa[s, tap, c, ci:].any()
-                else:
-                    assert not wa[s, tap, c].any()
-
-
-@pytest.mark.parametrize("ci,co", [(8, 16), (64, 100), (100, 128), (12, 20)])
-def test_gamma_nonneg_tap_layouts(ci, co):
-    """fused_gamma.pair_weights: w_prep the interleaved forward pair
-    (test_tensor_core_tap_layouts), w_apply [Co/4, 9, 8, Ci rounded up to 8] the pair flipped
-    and transposed with its rows interleaved as the prep's (m1, m3) pairs
-    (reduction channel 2o + s reads wz1 (s = 0) or wz3 (s = 1) at
-    [o, i, 2 - dy, 2 - dx]); zeros past the counts; biases (b1, b0, b2)."""
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
-    rng = np.random.default_rng(ci + co)
-    w, b = t(rng.standard_normal((co, ci, 3, 3))), t(rng.standard_normal(co))
-    wp, wa, bias3 = (a.numpy() for a in fused_gamma.pair_weights(w, b, 0.3))
-    cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}},
-                                  tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
-    assert wp.shape == (-(-ci // 8), 9, 8, 2 * co)
-    np.testing.assert_array_equal(bias3, cv.biases.numpy())
-    pair = (cv.wz1.numpy(), cv.wz3.numpy())
-    assert wa.shape == (co // 4, 9, 8, -(-ci // 8) * 8)
-    for sl in range(wa.shape[0]):
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            for c in range(8):
-                o, s = divmod(sl * 8 + c, 2)
-                np.testing.assert_array_equal(wa[sl, tap, c, :ci], pair[s][o, :, 2 - dy, 2 - dx])
-                assert not wa[sl, tap, c, ci:].any()
+def unlay(wg: torch.Tensor, kr: int, n: int):
+    """The (hi, lo) taps [9, kr, n] a pre-split layout [chunks, slices, 2, 9,
+    2, chunk, 4] (chain.wgmma_taps) holds, and the largest entry outside
+    them."""
+    cb, nsl, _, _, _, chunk, _ = wg.shape
+    full = wg.permute(2, 3, 1, 4, 6, 0, 5).reshape(2, 9, nsl * 8, cb * chunk)
+    rest = full.clone()
+    rest[:, :, :kr, :n] = 0
+    return full[0, :, :kr, :n], full[1, :, :kr, :n], rest.abs().max().item()
 
 
 def _gamma_nonneg_as_kernel(x, R, w, b, K, gamma, stab):
-    """gamma_nonneg_folded's two launches as the kernels index them, in f32
-    on the CPU: the prep's GEMM over the interleaved columns of w_prep, M =
-    (m1, m3) interleaved channels last, and the apply's GEMM over the 2*Co
-    channels R[o] * M[2o + s] against w_apply, tap (dy, dx) reading the
-    pixel (h + dy - 1, w + dx - 1) (the sums channels last, x, R and the
-    result NCHW as the kernels read and write them)."""
+    """gamma_nonneg_folded's two launches as the kernels index them, on the
+    CPU: the prep's GEMM over the interleaved columns of the pre-split
+    w_prep_wg, M = (m1, m3) interleaved channels last, and the apply's GEMM
+    over the 2*Co channels R[o] * M[2o + s] against the pre-split
+    w_apply_wg, tap (dy, dx) reading the pixel (h + dy - 1, w + dx - 1);
+    every product in 3xTF32 from the layouts' hi and lo (the sums channels
+    last, x, R and the result NCHW as the kernels read and write them)."""
     from drsa_audio_tpu_torch.xai.lrp import fused_gamma
     n, ci, H, W = x.shape
     co = w.shape[0]
-    wf, wt, bias3 = fused_gamma.pair_weights(w, b, gamma)
-    b1, b0, b2 = bias3
-    inv = float(np.float32(1.0 / (2.0 + gamma)))
-    taps_f = wf.transpose(0, 1).reshape(9, -1, 2 * co)[:, :ci]          # [9, ci, 2co]
-    taps_a = wt.transpose(0, 1).reshape(9, 2 * co, -1)[..., :ci]        # [9, 2co, ci]
+    taps = fused_gamma.build_pair_taps(w, b, gamma)
+    b1, b0, b2 = taps.biases
+    fh, fl, _ = unlay(taps.w_prep_wg, ci, 2 * co)                      # [9, ci, 2co]
+    ah, al, _ = unlay(taps.w_apply_wg, 2 * co, ci)                     # [9, 2co, ci]
+
+    def gemm3(a, bh, bl):
+        """sum over the taps of a(shifted) @ B in 3xTF32, a padded by one."""
+        a_hi, a_lo = split(a)
+        return sum((a_lo[..., dy:dy + H, dx:dx + W, :] @ bh[dy * 3 + dx]
+                    + a_hi[..., dy:dy + H, dx:dx + W, :] @ bl[dy * 3 + dx])
+                   + a_hi[..., dy:dy + H, dx:dx + W, :] @ bh[dy * 3 + dx]
+                   for dy in range(3) for dx in range(3))
+
     xp = torch.nn.functional.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
-    z = sum(xp[:, dy:dy + H, dx:dx + W] @ taps_f[dy * 3 + dx] for dy in range(3) for dx in range(3))
+    z = gemm3(xp, fh, fl)
     z1, z3 = z[..., 0::2] + b1, z[..., 1::2]
-    zt = (z1 + z3 - b1) * inv + b0
+    zt = (z1 + z3 - b1) * taps.inv + b0
     m1 = torch.where(zt > 0, 1.0 / chain.stabilize(z1 + b2, stab), 0.0)
     m3 = torch.where(zt < 0, 1.0 / chain.stabilize(z3, stab), 0.0)
     M = torch.stack([m1, m3], dim=-1).reshape(n, H, W, 2 * co)
     Rh = R.view(K, n, co, H, W).permute(1, 0, 3, 4, 2)
     A = torch.nn.functional.pad(Rh.repeat_interleave(2, dim=-1) * M[:, None],
                                 (0, 0, 1, 1, 1, 1))
-    acc = sum(A[:, :, dy:dy + H, dx:dx + W] @ taps_a[dy * 3 + dx]
-              for dy in range(3) for dx in range(3))
+    acc = gemm3(A, ah, al)
     out = x.permute(0, 2, 3, 1)[:, None] * acc                          # [n, K, H, W, ci]
     return out.permute(1, 0, 4, 2, 3).reshape(K * n, ci, H, W)
 

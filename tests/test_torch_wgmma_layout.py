@@ -1,12 +1,13 @@
-"""The pre-split K-major tap layouts of the wgmma chain kernels
+"""The pre-split K-major tap layouts of the wgmma kernels
 (csrc/conv3x3_wgmma.cuh; xai/lrp/chain.py wgmma_taps, GammaConv.w_prep_wg and
-w_apply_wg) on the CPU: every (part, slice, tap, channel, column) entry by
-index against the split of the taps they re-lay, the tile widths and column
-chunks at the repo's channel counts (100 -> 104 included), and the chain's
-3xTF32 emulation (test_torch_tf32x3.py) fed from the pre-split tiles
-against the same emulation splitting the weights itself, on the calls
-that the bridged 3s model and the small 6s-topology model record: the two
-must give the same bits.
+w_apply_wg; xai/lrp/fused_gamma.py PairTaps) on the CPU: every (part, slice,
+tap, channel, column) entry by index against the split of the taps they
+re-lay, the tile widths and column chunks at the repo's channel counts (100
+-> 104 included), gamma_nonneg's per-layer cache of its taps, and the
+chain's 3xTF32 emulation (test_torch_tf32x3.py) fed from the pre-split
+tiles against the same emulation splitting the weights itself, on the
+calls that the bridged 3s model and the small 6s-topology model record: the
+two must give the same bits.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from drsa_audio_tpu_torch.models import vgg as tvgg
 from drsa_audio_tpu_torch.xai.lrp import chain
-from test_torch_tf32x3 import _chain_calls, split, tf32, x3
+from test_torch_tf32x3 import _chain_calls, split, tf32, unlay, x3
 from test_torch_util import t
 
 
@@ -24,16 +25,6 @@ def _conv(ci: int, co: int, seed: int) -> chain.GammaConv:
     w = t(rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
     return chain.prep_inner_weights({"c": {"weight": w, "bias": t(rng.standard_normal(co))}},
                                     tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
-
-
-def _unlay(wg: torch.Tensor, kr: int, n: int):
-    """The (hi, lo) taps [9, kr, n] a pre-split layout [chunks, slices, 2, 9,
-    2, chunk, 4] holds, and the largest entry outside them."""
-    cb, nsl, _, _, _, chunk, _ = wg.shape
-    full = wg.permute(2, 3, 1, 4, 6, 0, 5).reshape(2, 9, nsl * 8, cb * chunk)
-    rest = full.clone()
-    rest[:, :, :kr, :n] = 0
-    return full[0, :, :kr, :n], full[1, :, :kr, :n], rest.abs().max().item()
 
 
 def _pair_taps(cv):
@@ -70,7 +61,7 @@ def test_wgmma_tap_layouts_rebuild_the_split_taps(ci, co):
     assert cv.w_apply_wg.shape == (1, -(-co // 8), 2, 9, 2, width, 4)
     assert (cv.prep_cols, cv.apply_cols) == (chunk, width)
     for wgt, taps in ((cv.w_prep_wg, _pair_taps(cv)), (cv.w_apply_wg, _apply_taps(cv))):
-        hi, lo, rest = _unlay(wgt, taps.shape[1], taps.shape[2])
+        hi, lo, rest = unlay(wgt, taps.shape[1], taps.shape[2])
         want_hi, want_lo = split(taps)
         assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
         assert rest == 0.0
@@ -110,10 +101,10 @@ def _presplit(cv):
     transposed wz1 from w_apply_wg (un-flipped), and the transposed wz3
     (zero under the relu gate, never launched) from w_prep_wg."""
     ci, co = cv.ci, cv.co
-    hi, lo, _ = _unlay(cv.w_prep_wg, ci, 2 * co)
+    hi, lo, _ = unlay(cv.w_prep_wg, ci, 2 * co)
     oihw = lambda a: a.reshape(3, 3, ci, co, 2).permute(4, 3, 2, 0, 1).contiguous()  # noqa: E731
     fwd = [oihw(hi), oihw(lo)]
-    ahi, alo, _ = _unlay(cv.w_apply_wg, co, ci)
+    ahi, alo, _ = unlay(cv.w_apply_wg, co, ci)
     tr = [a.reshape(3, 3, co, ci).permute(2, 3, 0, 1).flip(2, 3).contiguous() for a in (ahi, alo)]
     return ({id(cv.wz1): (fwd[0][0], fwd[1][0]), id(cv.wz3): (fwd[0][1], fwd[1][1])},
             {id(cv.wz1): (tr[0], tr[1]), id(cv.wz3): (fwd[0][1], fwd[1][1])})
@@ -156,3 +147,123 @@ def test_chain_3xtf32_from_presplit_tiles_equals_the_emulation(model, expected, 
             m.setattr(chain, "_conv_t_nhwc", _x3_presplit(chain._conv_t_nhwc, tr))
             got = plain(*args)
         assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ gamma_nonneg
+
+def _pair(ci: int, co: int, seed: int, gamma: float = 0.3):
+    """A conv's OIHW weight and bias, the plain pair (wz1, wz3) at gamma."""
+    rng = np.random.default_rng(seed)
+    w = t(rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
+    b = t(rng.standard_normal(co))
+    return w, b, (w + gamma * w.clamp(min=0), w + gamma * w.clamp(max=0))
+
+
+def _flipped_pair(wz1, wz3):
+    """The pair as gamma_nonneg's apply multiplies it: [9, 2*Co, Ci],
+    reduction row 2o + s reading wz1 (s = 0) or wz3 (s = 1) at [o, i, 2 -
+    dy, 2 - dx] for tap (dy, dx)."""
+    co, ci = wz1.shape[:2]
+    return (torch.stack([wz1, wz3], dim=1).reshape(2 * co, ci, 3, 3).flip(2, 3)
+            .permute(2, 3, 0, 1).reshape(9, 2 * co, ci))
+
+
+# the 3s and 6s models' (Ci, Co) on the shared walk, the toy's, a
+# 20-channel count; 100 -> 104 in the apply's tile
+GAMMA_NONNEG = [(32, 32), (32, 64), (64, 64), (64, 100), (100, 100), (100, 128), (128, 128),
+                (8, 16), (12, 20)]
+
+
+@pytest.mark.parametrize("ci,co", GAMMA_NONNEG)
+def test_gamma_nonneg_pair_taps_rebuild_the_pair(ci, co):
+    """fused_gamma's PairTaps: w_prep_wg the interleaved forward pair (the
+    chain's GammaConv.w_prep_wg for the same weights, bit for bit) and
+    w_apply_wg the stacked flipped transpose (test_torch_tf32x3 emulates
+    both launches from them), each hi = tf32(w) and lo = tf32(w - hi) at
+    every index, zeros past the counts, in the widths the wrapper passes
+    (prep chunk 16 or 32, apply tile wg_cols(Ci): 100 -> 104); biases (b1,
+    b0, b2) and inv = f32(1/(2+g))."""
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    w, b, (wz1, wz3) = _pair(ci, co, ci * 1000 + co)
+    taps = fused_gamma.build_pair_taps(w, b, 0.3)
+    cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}},
+                                  tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
+    assert torch.equal(taps.w_prep_wg, cv.w_prep_wg) and torch.equal(taps.biases, cv.biases)
+    assert taps.inv == cv.inv == float(np.float32(1 / 2.3))
+    chunk, width = chain.prep_chunk(2 * co), chain.wg_cols(ci)
+    assert (taps.prep_cols, taps.apply_cols) == (chunk, width)
+    assert width == next(c for c in (8, 16, 32, 64, 104, 128) if ci <= c)
+    assert taps.w_prep_wg.shape == (-(-2 * co // chunk), -(-ci // 8), 2, 9, 2, chunk, 4)
+    assert taps.w_apply_wg.shape == (1, 2 * co // 8, 2, 9, 2, width, 4)
+    fwd = (torch.stack([wz1, wz3], dim=1).reshape(2 * co, ci, 3, 3)
+           .permute(2, 3, 1, 0).reshape(9, ci, 2 * co))
+    for wgt, want in ((taps.w_prep_wg, fwd), (taps.w_apply_wg, _flipped_pair(wz1, wz3))):
+        hi, lo, rest = unlay(wgt, want.shape[1], want.shape[2])
+        want_hi, want_lo = split(want)
+        assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+        assert rest == 0.0
+        assert torch.equal(hi, tf32(hi)) and torch.equal(lo, tf32(lo))
+
+
+@pytest.mark.parametrize("ci,co", [(12, 20), (100, 128)])
+def test_gamma_nonneg_apply_taps_by_index(ci, co):
+    """w_apply_wg entry by entry, as the apply addresses it: slice s, part
+    p, tap (dy, dx), channel half kc, lane i and column n hold reduction
+    channel r = 8s + 4kc + i, i.e. the pair member r % 2 of output channel
+    r // 2, at input channel n, flipped: wz[r % 2][r // 2, n, 2 - dy, 2 -
+    dx]; zeros past Ci."""
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    w, b, pair = _pair(ci, co, 11)
+    taps = fused_gamma.build_pair_taps(w, b, 0.3).w_apply_wg[0].numpy()
+    parts = [[a.numpy() for a in split(p)] for p in pair]           # [member][part]
+    width = taps.shape[-2]
+    for s in range(taps.shape[0]):
+        for p in range(2):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                for kc in range(2):
+                    for i in range(4):
+                        r = 8 * s + 4 * kc + i
+                        want = np.zeros(width, np.float32)
+                        want[:ci] = parts[r % 2][p][r // 2, :, 2 - dy, 2 - dx]
+                        np.testing.assert_array_equal(taps[s, p, tap, kc, :, i], want)
+
+
+@pytest.mark.parametrize("change", ["none", "in_place", "new_tensor", "bias", "gamma"])
+def test_gamma_nonneg_pair_taps_cached_per_layer(change):
+    """pair_taps builds a layer's taps once and serves them while the weight
+    and bias are the same tensors, unchanged: a weight or bias updated in
+    place, another weight tensor or another gamma is built anew (never
+    served stale), and the rebuilt taps are those of the new weights. An
+    entry goes with its weight."""
+    import gc
+
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    w, b, _ = _pair(16, 32, 5)
+    other, _, _ = _pair(8, 16, 6)                 # another layer, built once too
+    n0 = fused_gamma.BUILDS["pair_taps"]
+    first = fused_gamma.pair_taps(w, b, 0.3)
+    assert fused_gamma.pair_taps(other, None, 0.3) is fused_gamma.pair_taps(other, None, 0.3)
+    assert fused_gamma.pair_taps(w, b, 0.3) is first
+    assert fused_gamma.BUILDS["pair_taps"] == n0 + 2
+    gamma = 0.3
+    if change == "in_place":
+        with torch.no_grad():
+            w.mul_(-1.0)
+    elif change == "new_tensor":
+        w = w.clone() * 2.0
+    elif change == "bias":
+        b += 1.0
+    elif change == "gamma":
+        gamma = 0.25
+    again = fused_gamma.pair_taps(w, b, gamma)
+    assert fused_gamma.BUILDS["pair_taps"] == n0 + 2 + (change != "none")
+    assert (again is first) == (change == "none")
+    fresh = fused_gamma.build_pair_taps(w, b, gamma)
+    for a, f in ((again.w_prep_wg, fresh.w_prep_wg), (again.w_apply_wg, fresh.w_apply_wg),
+                 (again.biases, fresh.biases)):
+        assert torch.equal(a, f)
+    entries = len(fused_gamma._TAPS)
+    del other
+    gc.collect()
+    assert len(fused_gamma._TAPS) == entries - 1
