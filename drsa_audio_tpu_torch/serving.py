@@ -30,6 +30,7 @@ from drsa_audio_tpu_torch.ops.frontend import FrontendConfig, logmel, peak_norma
 from drsa_audio_tpu_torch.parallel.sharding import mesh_device, sharded
 from drsa_audio_tpu_torch.runtime.loader import load_audio
 from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY
+from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
 from drsa_audio_tpu_torch.xai.explain import (
     class_composite, sort_subspaces, subspace_heatmaps)
@@ -79,7 +80,8 @@ def _prefetched(gen: Iterable, depth: int = 2) -> Iterator:
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("feed.wait"):
+                item = q.get()
             if item is sentinel:
                 if errs:
                     raise errs[0]
@@ -149,55 +151,89 @@ class ExplainerService:
     def _dispatch(self, wavs, class_name: str, fused: bool | None = None):
         """Enqueue one request; returns (heatmaps, logits) on the device
         (with a mesh, the whole batch's, gathered from the ranks)."""
-        onehot = torch.zeros(self.n_classes, device=self.device)
-        onehot[self.mapper[class_name]] = 1.0
-        cfg = self.config
-        specs_proj = insert_projection(
-            self.specs, self.layer_idx, self.Us[class_name],
-            self.num_concepts, input_size=(cfg.n_mels, cfg.width))
+        with profiling.span("service.dispatch"):
+            onehot = torch.zeros(self.n_classes, device=self.device)
+            onehot[self.mapper[class_name]] = 1.0
+            cfg = self.config
+            specs_proj = insert_projection(
+                self.specs, self.layer_idx, self.Us[class_name],
+                self.num_concepts, input_size=(cfg.n_mels, cfg.width))
 
-        def run(x):
-            mels = logmel(peak_normalize(x), cfg)[:, None]
-            return subspace_heatmaps(
-                specs_proj, self.params, mels, self.composite,
-                self.num_concepts, output_mask=lambda lg: lg * onehot[None, :],
-                fused=fused)
+            def run(x):
+                with profiling.span("frontend", device=True):
+                    mels = logmel(peak_normalize(x), cfg)[:, None]
+                return subspace_heatmaps(
+                    specs_proj, self.params, mels, self.composite,
+                    self.num_concepts, output_mask=lambda lg: lg * onehot[None, :],
+                    fused=fused)
 
-        with torch.inference_mode():
-            wavs = np.asarray(wavs, np.float32)
-            if self.mesh is not None:
-                return sharded(run, self.mesh)(wavs)
-            return run(torch.as_tensor(wavs, device=self.device))
+            with torch.inference_mode():
+                wavs = np.asarray(wavs, np.float32)
+                if self.mesh is not None:
+                    out = sharded(run, self.mesh)(wavs)
+                else:
+                    with profiling.span("service.upload"):
+                        host = torch.as_tensor(wavs)
+                        x = host.to(self.device)
+                        profiling.count_copy("h2d_bytes", host, x)
+                    out = run(x)
+            profiling.mark_done()
+            return out
 
     def explain(self, wavs: np.ndarray, class_name: str,
                 fused: bool | None = None) -> dict:
         """``fused=False`` runs the lower segment through the plain tiled
         walk instead of the chain kernels (for comparison)."""
-        out = self._finalize(self._dispatch(wavs, class_name, fused))
-        out["standard_relevance"] = out["standard_heatmaps"].sum(axis=(-2, -1)).flatten()
+        with profiling.request(self.device):
+            out = self._dispatch(wavs, class_name, fused)
+            with profiling.span("service.finalize"):
+                out = self._finalize(out)
+            with profiling.span("service.relevance"):
+                out["standard_relevance"] = out["standard_heatmaps"].sum(axis=(-2, -1)).flatten()
         return out
 
     def explain_stream(self, requests: Iterable[ExplainRequest]) -> Iterator[dict]:
         """Enqueue request i+1 before reading back request i, so the host's
-        work on one overlaps the device's on the other."""
+        work on one overlaps the device's on the other. A request's span in
+        the request log opens when the stream asks ``requests`` for it."""
+        it, end = iter(requests), object()
         pending = None
-        for req in requests:
-            cls = next(k for k, v in self.mapper.items() if v == req.class_idx)
-            out = self._dispatch(req.wavs, cls)
+        while True:
+            rec = profiling.open_request(self.device)
+            with profiling.activate(rec):
+                req = next(it, end)
+                if req is end:
+                    break
+                cls = next(k for k, v in self.mapper.items() if v == req.class_idx)
+                out = self._dispatch(req.wavs, cls)
             if pending is not None:
-                yield self._finalize(pending)
-            pending = out
+                yield self._finish(*pending)
+            pending = rec, out
         if pending is not None:
-            yield self._finalize(pending)
+            yield self._finish(*pending)
+
+    def _finish(self, rec, out) -> dict:
+        """``_finalize`` under the request ``rec``, which it closes."""
+        with profiling.activate(rec):
+            with profiling.span("service.finalize"):
+                result = self._finalize(out)
+        profiling.close_request(rec)
+        return result
 
     def _finalize(self, out) -> dict:
         heat, logits = out
-        heat = heat.cpu().numpy()
+        profiling.wait_device()
+        with profiling.span("service.readback"):
+            heat_host, logits_host = heat.cpu(), logits.cpu()
+            profiling.count_copy("d2h_bytes", heat_host, heat)
+            profiling.count_copy("d2h_bytes", logits_host, logits)
+            heat = heat_host.numpy()
         standard = heat[:, 0:1]
-        sub, rel, order = sort_subspaces(heat[:, 1:])
+        with profiling.span("service.sort"):
+            sub, rel, order = sort_subspaces(heat[:, 1:])
         return {"standard_heatmaps": standard, "subspace_heatmaps": sub,
                 "subspace_relevances": rel, "mask": order,
-                "logits": logits.cpu().numpy()}
+                "logits": logits_host.numpy()}
 
     def explain_files(self, paths: Sequence[str], class_name: str, batch_size: int = 32,
                       window_s: float | None = None, on_short: str = "pad",

@@ -33,6 +33,7 @@ from drsa_audio_tpu_torch.models.projection import insert_projection
 from drsa_audio_tpu_torch.models.vgg import LayerSpec, apply_layer, apply_layer_nhwc
 from drsa_audio_tpu_torch.utils.constants import (
     AUDIO_PARAMS, CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY)
+from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
 from drsa_audio_tpu_torch.xai.lrp import chain
 from drsa_audio_tpu_torch.xai.lrp.engine import (
@@ -265,13 +266,15 @@ def subspace_heatmaps(specs_proj: Sequence[LayerSpec], params: dict,
     the paths."""
     if nhwc is None:
         nhwc = not shared_denominators
-    R_filter, acts_lower, logits = explain_forward_upper(
-        specs_proj, params, x, composite, class_idx=class_idx,
-        num_classes=num_classes, one_hot_encoded=one_hot_encoded,
-        output_mask=output_mask, nhwc=nhwc)
-    heat = explain_lower(specs_proj, params, acts_lower, R_filter, composite,
-                         num_concepts, shared_denominators=shared_denominators,
-                         clone_chunk=clone_chunk, nhwc=nhwc, fused=fused)
+    with profiling.span("forward_upper", device=True):
+        R_filter, acts_lower, logits = explain_forward_upper(
+            specs_proj, params, x, composite, class_idx=class_idx,
+            num_classes=num_classes, one_hot_encoded=one_hot_encoded,
+            output_mask=output_mask, nhwc=nhwc)
+    with profiling.span("lower", device=True):
+        heat = explain_lower(specs_proj, params, acts_lower, R_filter, composite,
+                             num_concepts, shared_denominators=shared_denominators,
+                             clone_chunk=clone_chunk, nhwc=nhwc, fused=fused)
     return heat, logits
 
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from drsa_audio_tpu_torch.models.vgg import conv2d_same_nhwc
+from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.nvcc import check_cuda, load, raise_on
 from drsa_audio_tpu_torch.xai.lrp.rules import stabilize
 
@@ -720,6 +721,13 @@ def mergeable(plan, params: dict) -> bool:
             and all(blocks[i]["pool_above"][2] == 2 for i in range(M)))
 
 
+def _prep(prep, *args):
+    """A weight prep of the chain, as the span ``lower.prep`` of the
+    request log."""
+    with profiling.span("lower.prep"):
+        return prep(*args)
+
+
 def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tensor,
                               K: int) -> torch.Tensor:
     """Run the chain. acts_nhwc: the recorded NHWC input of every
@@ -734,7 +742,7 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
     for i in range(len(blocks) - 1, M if merged else 0, -1):
         blk = blocks[i]
         convs_td = list(reversed(blk["convs"]))
-        cws = [prep_inner_weights(params, specs[ci], blk["rules"][ci])
+        cws = [_prep(prep_inner_weights, params, specs[ci], blk["rules"][ci])
                for ci in convs_td]
         xs = [acts_nhwc[ci] for ci in convs_td]
         if i >= 2:
@@ -743,13 +751,13 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
         else:
             R = chain_block(R, xs, cws)
     a1 = acts_nhwc[1]
-    fl = prep_first_weights(params, specs[0], plan["first_rule"], a1.shape[1:3])
+    fl = _prep(prep_first_weights, params, specs[0], plan["first_rule"], a1.shape[1:3])
     if merged:
         # the merged convs top-down, and below each but the last the pool
         # above the next block down, its route from that block's pre-relu
         # conv output
         convs_td = [(bi, blocks[bi]["convs"][0]) for bi in range(M, 0, -1)]
-        cws = [prep_inner_weights(params, specs[ci], blocks[bi]["rules"][ci])
+        cws = [_prep(prep_inner_weights, params, specs[ci], blocks[bi]["rules"][ci])
                for bi, ci in convs_td]
         apres = [acts_nhwc[blocks[bi]["pool_above"][0] - 1] for bi in range(M - 1, 0, -1)]
         return merged_tail(R, [acts_nhwc[ci] for _, ci in convs_td], cws, apres, a1, fl)
@@ -757,5 +765,5 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
         return first_layer(R, a1, fl)
     pi, kh, kw = blocks[0]["pool_above"]
     ci = blocks[0]["convs"][1]
-    gconv = prep_inner_weights(params, specs[ci], blocks[0]["rules"][ci])
+    gconv = _prep(prep_inner_weights, params, specs[ci], blocks[0]["rules"][ci])
     return first_block_deep(R, a1, acts_nhwc[pi - 1], gconv, fl, (kh, kw))

@@ -359,6 +359,30 @@ def test_service_on_card_matches_plain_path(cuda):
     _close(got, want)
 
 
+def test_request_log_on_card(cuda):
+    """A request's device spans resolve to ms and drop their events; the
+    counters hold the pageable bytes of the upload, the maps and the logits."""
+    import time
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils import profiling
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
+    specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
+    params = vgg.init_params(specs, 0, device="cuda")
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN,
+                           {"pop": random_orthogonal(0, 64)}, 4, 10)
+    wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
+    t0 = time.perf_counter()
+    svc.explain(wavs, "pop")
+    (req,) = profiling.requests(t0, time.perf_counter())
+    for name in ("frontend", "forward_upper", "lower"):
+        assert req.device_ms(name) > 0.0
+    assert req._events == [] and req._done is None
+    assert req.counters == {"h2d_bytes.pinned": 0, "h2d_bytes.pageable": 4 * 48000 * 4,
+                            "d2h_bytes.pinned": 0,
+                            "d2h_bytes.pageable": 4 * 5 * 128 * 128 * 4 + 4 * 10 * 4}
+
+
 @pytest.mark.parametrize("layer,d,n_blocks", [(33, 128, 4), (19, 100, 2)])
 def test_6s_service_on_card_matches_plain_path(cuda, layer, d, n_blocks):
     from drsa_audio_tpu_torch.serving import ExplainerService
