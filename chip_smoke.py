@@ -622,8 +622,8 @@ def staged_request(svc, wavs, class_name: str) -> dict:
     functions the service calls are wrapped for the call: CUDA events mark
     where each device stage ends, so the device stages are contiguous spans
     of the device's timeline; the device is synchronised before the readback,
-    and the host clock times the readback and the sort. ``other_host`` is
-    what the request took beyond all of these."""
+    and the host clock times the readback and the sort's enqueue.
+    ``other_host`` is what the request took beyond all of these."""
     import torch
     from drsa_audio_tpu_torch import serving
     from drsa_audio_tpu_torch.xai import explain as explain_mod
@@ -663,7 +663,7 @@ def staged_request(svc, wavs, class_name: str) -> dict:
                device_stage(explain_mod, "explain_forward_upper", after="forward_upper"),
                device_stage(explain_mod, "explain_lower", after="lower"),
                host_stage(svc, "_finalize", "readback"),
-               host_stage(serving, "sort_subspaces", "sort")]
+               host_stage(serving, "sort_concepts", "sort")]
     for mod, attr, _, run in patches:
         setattr(mod, attr, run)
     try:
@@ -678,7 +678,7 @@ def staged_request(svc, wavs, class_name: str) -> dict:
         del svc._finalize                    # back to the class's method
     order = ["start", "uploaded", "frontend", "forward_upper", "lower"]
     out = {b: events[a].elapsed_time(events[b]) for a, b in zip(order, order[1:])}
-    out["readback"] = host["readback"] - host["sort"]   # _finalize less the sort
+    out["readback"] = host["readback"]          # the sort is enqueued in _dispatch
     out["sort"] = host["sort"]
     out["other_host"] = total - sum(out.values())
     out["request"] = total
@@ -782,6 +782,15 @@ def check_heatmaps(name: str, std: np.ndarray, sub: np.ndarray, shape) -> None:
                                atol=1e-6 * np.abs(std).max(), err_msg=name)
 
 
+def unsorted_heatmaps(svc, wavs, class_name: str, **kw):
+    """One request's heatmaps [b, K+1, h, w] on the card, in the concepts'
+    own order: ``_dispatch`` returns them sorted, with the order it used,
+    and the sort is undone."""
+    from drsa_audio_tpu_torch.serving import unsort_concepts
+    heat, _, _, order = svc._dispatch(wavs, class_name, **kw)
+    return unsort_concepts(heat, order)
+
+
 def serve_checks(svc, wavs, class_names, shape, counts, name, vs_default=False,
                  vs_plain=True) -> dict:
     """Serve one request per class with every launch counter set to 0 just
@@ -804,15 +813,15 @@ def serve_checks(svc, wavs, class_names, shape, counts, name, vs_default=False,
            "launches": launches}
     if not vs_plain:
         return out
-    got, _ = svc._dispatch(wavs[0], class_names[0])
-    want, _ = svc._dispatch(wavs[0], class_names[0], fused=False)
+    got = unsorted_heatmaps(svc, wavs[0], class_names[0])
+    want = unsorted_heatmaps(svc, wavs[0], class_names[0], fused=False)
     torch.cuda.synchronize()
     out.update(max_abs_err_vs_plain=check_close(f"{name} request vs plain path", got, want),
                max_abs_plain=want.abs().max().item())
     if vs_default:
         merged, chain.CHAIN_MERGED = chain.CHAIN_MERGED, False
         try:
-            default, _ = svc._dispatch(wavs[0], class_names[0])
+            default = unsorted_heatmaps(svc, wavs[0], class_names[0])
         finally:
             chain.CHAIN_MERGED = merged
         out["max_abs_err_vs_default"] = check_close(f"{name} request vs default chain",
@@ -849,7 +858,7 @@ def kernel_rows(svc, wavs, class_name, expected, batch, path) -> list:
     for n in names:
         setattr(chain, n, recorder(n))
     try:
-        heat, _ = svc._dispatch(wavs, class_name)
+        heat = svc._dispatch(wavs, class_name)[0]
     finally:
         for n in names:
             setattr(chain, n, originals[n])
@@ -1976,8 +1985,8 @@ def lrp_conditioning(svc, wavs, class_name: str) -> dict:
     from drsa_audio_tpu_torch.models.projection import insert_projection
     from drsa_audio_tpu_torch.ops.frontend import logmel, peak_normalize
     from drsa_audio_tpu_torch.xai.explain import subspace_heatmaps
-    got, _ = svc._dispatch(wavs, class_name)
-    want, _ = svc._dispatch(wavs, class_name, fused=False)
+    got = unsorted_heatmaps(svc, wavs, class_name)
+    want = unsorted_heatmaps(svc, wavs, class_name, fused=False)
     cfg = svc.config
     with torch.inference_mode():
         mels = logmel(peak_normalize(torch.as_tensor(wavs, device="cuda")), cfg)[:, None]

@@ -32,8 +32,7 @@ from drsa_audio_tpu_torch.runtime.loader import load_audio
 from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY
 from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
-from drsa_audio_tpu_torch.xai.explain import (
-    class_composite, sort_subspaces, subspace_heatmaps)
+from drsa_audio_tpu_torch.xai.explain import class_composite, subspace_heatmaps
 
 
 @dataclasses.dataclass
@@ -112,6 +111,33 @@ def _prepare(path: str, window: int, target_sr: int, on_short: str) -> np.ndarra
     return w[:window]
 
 
+def _front_index(order: torch.Tensor) -> torch.Tensor:
+    """Slots [b, K+1] of a request's maps: the standard map, then ``order``."""
+    return torch.cat([torch.zeros_like(order[:, :1]), order + 1], dim=1)
+
+
+def sort_concepts(heat: torch.Tensor):
+    """The service's subspace sort (``xai.explain.sort_subspaces``) where
+    the maps live, with no host sync: ``heat`` [b, K+1, h, w] is the
+    standard map, then the K concept maps. Returns the maps in one new
+    tensor, the standard map still first and the concepts by descending
+    relevance, their float32 relevances [b, K+1], and the int64 ``order``
+    [b, K] of the concepts: ``np.argsort(rel)[..., ::-1]``'s wherever the
+    relevances differ, with exact ties larger index first (a stable
+    ascending sort, flipped)."""
+    rel = heat.sum(dim=(-2, -1))
+    order = torch.sort(rel[:, 1:], dim=-1, stable=True).indices.flip(-1)
+    idx = _front_index(order)
+    return torch.take_along_dim(heat, idx[:, :, None, None], dim=1), rel.gather(1, idx), order
+
+
+def unsort_concepts(heat: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``sort_concepts`` undone: the maps [b, K+1, h, w] with the concepts
+    back in their own order."""
+    idx = _front_index(order)
+    return heat.clone().scatter_(1, idx[:, :, None, None].expand_as(heat), heat)
+
+
 class ExplainerService:
     """explain(wavs, class_name) -> dict of standard/subspace heatmaps and
     relevances (mirroring HeatmapGenerator.info) and the logits.
@@ -122,10 +148,10 @@ class ExplainerService:
 
     With a ``mesh`` (parallel.sharding ``get_mesh``) the service is one
     rank of a data-parallel group and runs on the rank's device: every rank
-    calls ``explain`` with the same request, explains its block of the
-    clips, and gathers the heatmaps and logits of the whole batch, in row
-    order, before readback and sort, so that every rank returns the same
-    dict."""
+    calls ``explain`` with the same request, explains and sorts its block of
+    the clips, and gathers the sorted heatmaps, their relevances and order
+    and the logits of the whole batch, in row order, before the readback, so
+    that every rank returns the same dict."""
 
     def __init__(self, specs: Sequence[LayerSpec], params: dict, name_map,
                  Us: dict, num_concepts: int, layer_idx: int,
@@ -149,8 +175,11 @@ class ExplainerService:
         self.composite = class_composite(name_map, num_concepts)
 
     def _dispatch(self, wavs, class_name: str, fused: bool | None = None):
-        """Enqueue one request; returns (heatmaps, logits) on the device
-        (with a mesh, the whole batch's, gathered from the ranks)."""
+        """Enqueue one request, the subspace sort included; returns on the
+        device (with a mesh, the whole batch's, gathered from the ranks)
+        heatmaps [b, K+1, h, w] (the standard map, then the concept maps by
+        descending relevance), the logits, the relevances [b, K+1] of those
+        maps and the order [b, K] of the concepts."""
         with profiling.span("service.dispatch"):
             onehot = torch.zeros(self.n_classes, device=self.device)
             onehot[self.mapper[class_name]] = 1.0
@@ -162,10 +191,14 @@ class ExplainerService:
             def run(x):
                 with profiling.span("frontend", device=True):
                     mels = logmel(peak_normalize(x), cfg)[:, None]
-                return subspace_heatmaps(
+                heat, logits = subspace_heatmaps(
                     specs_proj, self.params, mels, self.composite,
                     self.num_concepts, output_mask=lambda lg: lg * onehot[None, :],
                     fused=fused)
+                with profiling.span("service.device_sort", device=True):
+                    heat, rel, order = sort_concepts(heat)
+                    profiling.count("sort.device_clips", heat.shape[0])
+                return heat, logits, rel, order
 
             with torch.inference_mode():
                 wavs = np.asarray(wavs, np.float32)
@@ -188,8 +221,6 @@ class ExplainerService:
             out = self._dispatch(wavs, class_name, fused)
             with profiling.span("service.finalize"):
                 out = self._finalize(out)
-            with profiling.span("service.relevance"):
-                out["standard_relevance"] = out["standard_heatmaps"].sum(axis=(-2, -1)).flatten()
         return out
 
     def explain_stream(self, requests: Iterable[ExplainRequest]) -> Iterator[dict]:
@@ -218,22 +249,22 @@ class ExplainerService:
             with profiling.span("service.finalize"):
                 result = self._finalize(out)
         profiling.close_request(rec)
+        del result["standard_relevance"]      # in explain()'s dict only
         return result
 
     def _finalize(self, out) -> dict:
-        heat, logits = out
+        """The wait and the readback of ``_dispatch``'s outputs: ``explain``'s
+        result dict, whose maps and relevances are views of the arrays read
+        back."""
         profiling.wait_device()
         with profiling.span("service.readback"):
-            heat_host, logits_host = heat.cpu(), logits.cpu()
-            profiling.count_copy("d2h_bytes", heat_host, heat)
-            profiling.count_copy("d2h_bytes", logits_host, logits)
-            heat = heat_host.numpy()
-        standard = heat[:, 0:1]
-        with profiling.span("service.sort"):
-            sub, rel, order = sort_subspaces(heat[:, 1:])
-        return {"standard_heatmaps": standard, "subspace_heatmaps": sub,
-                "subspace_relevances": rel, "mask": order,
-                "logits": logits_host.numpy()}
+            host = [t.cpu() for t in out]
+            for h, d in zip(host, out):
+                profiling.count_copy("d2h_bytes", h, d)
+            heat, logits, rel, order = (t.numpy() for t in host)
+        return {"standard_heatmaps": heat[:, :1], "subspace_heatmaps": heat[:, 1:],
+                "subspace_relevances": rel[:, 1:], "mask": order, "logits": logits,
+                "standard_relevance": rel[:, 0]}
 
     def explain_files(self, paths: Sequence[str], class_name: str, batch_size: int = 32,
                       window_s: float | None = None, on_short: str = "pad",

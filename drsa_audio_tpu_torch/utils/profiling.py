@@ -14,10 +14,12 @@ named spans (``span``): a start and an end on ``time.perf_counter``, the
 enclosing span and the request's id. A span opened where no request is
 active records nothing. Per request, ``count_copy`` adds the bytes moved
 host to device (``h2d_bytes``) and device to host (``d2h_bytes``), tagged
-``pinned`` or ``pageable`` by the host tensor. On a CUDA device a span
-opened with ``device=True`` also records a pair of timing events; they are
-resolved to ms when the request closes, after ``wait_device`` has waited for
-its device work, so no event outlives its request. While a ``torch.profiler`` is active
+``pinned`` or ``pageable`` by the host tensor, and ``count`` adds to any
+other counter (``sort.device_clips``: the clips the service sorted on the
+device). On a CUDA device a span opened with ``device=True`` also records a
+pair of timing events; they are resolved to ms when the request closes,
+after ``wait_device`` has waited for its device work, so no event outlives
+its request. While a ``torch.profiler`` is active
 (``trace``), and only then, each span also enters ``record_function``
 under its own name, so the device timeline carries the program's stages.
 
@@ -301,6 +303,13 @@ class Recorder:
         key = f"{name}.{'pinned' if host.is_pinned() else 'pageable'}"
         req.counters[key] += host.numel() * host.element_size()
 
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the active request's counter ``name`` (from 0 where
+        the request has none yet)."""
+        req = self._active()
+        if req is not None:
+            req.counters[name] = req.counters.get(name, 0) + n
+
     def mark_done(self) -> None:
         """Record, on CUDA, the untimed event that ``wait_device`` waits for:
         the end of the device work the active request has enqueued."""
@@ -365,6 +374,7 @@ activate = RECORDER.activate
 request = RECORDER.request
 span = RECORDER.span
 count_copy = RECORDER.count_copy
+count = RECORDER.count
 mark_done = RECORDER.mark_done
 wait_device = RECORDER.wait_device
 requests = RECORDER.requests

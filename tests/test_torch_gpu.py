@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import unsorted_heatmaps
 from drsa_audio_tpu_torch.models import vgg
 from drsa_audio_tpu_torch.xai.lrp import chain
 
@@ -351,10 +352,10 @@ def test_service_on_card_matches_plain_path(cuda):
                            {"pop": random_orthogonal(0, 64)}, 4, 10)
     wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
     chain.reset_launches()
-    got, _ = svc._dispatch(wavs, "pop")
+    got = unsorted_heatmaps(svc, wavs, "pop")
     counts = {"chain_block": 3, "first_layer": 1, "first_block_deep": 0, "merged_tail": 0}
     assert chain.LAUNCHES == counts
-    want, _ = svc._dispatch(wavs, "pop", fused=False)
+    want = unsorted_heatmaps(svc, wavs, "pop", fused=False)
     assert chain.LAUNCHES == counts
     _close(got, want)
 
@@ -375,12 +376,34 @@ def test_request_log_on_card(cuda):
     t0 = time.perf_counter()
     svc.explain(wavs, "pop")
     (req,) = profiling.requests(t0, time.perf_counter())
-    for name in ("frontend", "forward_upper", "lower"):
+    for name in ("frontend", "forward_upper", "lower", "service.device_sort"):
         assert req.device_ms(name) > 0.0
     assert req._events == [] and req._done is None
+    # the maps, the logits, the relevances [4, 5] and the order [4, 4] (int64)
     assert req.counters == {"h2d_bytes.pinned": 0, "h2d_bytes.pageable": 4 * 48000 * 4,
                             "d2h_bytes.pinned": 0,
-                            "d2h_bytes.pageable": 4 * 5 * 128 * 128 * 4 + 4 * 10 * 4}
+                            "d2h_bytes.pageable": (4 * 5 * 128 * 128 * 4 + 4 * 10 * 4
+                                                   + 4 * 5 * 4 + 4 * 4 * 8),
+                            "sort.device_clips": 4}
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_device_sort_matches_numpy_without_a_host_sync(cuda, K):
+    """The service's sort of a card tensor at the 3s service's shape, with
+    an exact tie: no host sync (the sync debug mode raises on one), and the
+    numpy path's order and maps."""
+    from drsa_audio_tpu_torch.serving import sort_concepts
+    from test_torch_sort import check_device_sort
+    g = torch.Generator(device="cuda").manual_seed(K)
+    heat = torch.randn(256, K + 1, 128, 128, generator=g, device="cuda")
+    heat[::2, K] = heat[::2, 1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sort_concepts(heat)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_device_sort(heat, got)
 
 
 @pytest.mark.parametrize("layer,d,n_blocks", [(33, 128, 4), (19, 100, 2)])
@@ -393,11 +416,11 @@ def test_6s_service_on_card_matches_plain_path(cuda, layer, d, n_blocks):
                            {"jazz": random_orthogonal(0, d)}, 4, layer, case="gtzan_6s")
     wavs = (np.random.default_rng(2).standard_normal((2, 96000)) * 0.3).astype(np.float32)
     chain.reset_launches()
-    got, _ = svc._dispatch(wavs, "jazz")
+    got = unsorted_heatmaps(svc, wavs, "jazz")
     counts = {"chain_block": n_blocks, "first_layer": 0, "first_block_deep": 1,
               "merged_tail": 0}
     assert chain.LAUNCHES == counts
-    want, _ = svc._dispatch(wavs, "jazz", fused=False)
+    want = unsorted_heatmaps(svc, wavs, "jazz", fused=False)
     assert chain.LAUNCHES == counts
     assert got.shape == (2, 5, 128, 256)
     _close(got, want)
@@ -496,14 +519,14 @@ def test_service_merged_on_card_matches_default_path(cuda, monkeypatch, layer):
     svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN,
                            {"pop": random_orthogonal(0, 64)}, 4, layer)
     wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
-    want, _ = svc._dispatch(wavs, "pop")
+    want = unsorted_heatmaps(svc, wavs, "pop")
     monkeypatch.setattr(chain, "CHAIN_MERGED", True)
     chain.reset_launches()
-    got, _ = svc._dispatch(wavs, "pop")
+    got = unsorted_heatmaps(svc, wavs, "pop")
     assert chain.LAUNCHES == {"chain_block": 1, "first_layer": 0, "first_block_deep": 0,
                               "merged_tail": 1}
     _close(got, want)
-    _close(got, svc._dispatch(wavs, "pop", fused=False)[0])
+    _close(got, unsorted_heatmaps(svc, wavs, "pop", fused=False))
 
 
 def _6s_model():

@@ -19,7 +19,7 @@ from drsa_audio_tpu_torch.serving import ExplainerService, ExplainRequest, _pref
 from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_TOY
 
-# span -> its parent, for a request of ``explain``
+# span -> its parent, for a request of ``explain`` or ``explain_stream``
 TREE = {"service.request": None,
         "service.dispatch": "service.request",
         "service.upload": "service.dispatch",
@@ -27,12 +27,10 @@ TREE = {"service.request": None,
         "forward_upper": "service.dispatch",
         "lower": "service.dispatch",
         "lower.prep": "lower",
+        "service.device_sort": "service.dispatch",
         "service.finalize": "service.request",
         "service.wait": "service.finalize",
-        "service.readback": "service.finalize",
-        "service.sort": "service.finalize",
-        "service.relevance": "service.request"}
-STREAM_TREE = {k: v for k, v in TREE.items() if k != "service.relevance"}
+        "service.readback": "service.finalize"}
 PREPS = 4          # the toy model's chain: three inner gamma convs and the first layer
 
 
@@ -57,25 +55,26 @@ def _recorded(fn):
     return profiling.requests(t0, time.perf_counter()), out
 
 
-def _check_tree(req, tree):
+def _check_tree(req):
     names = [s.name for s in req.spans]
-    assert set(names) == set(tree) and names.count("lower.prep") == PREPS
-    assert all(names.count(n) == 1 for n in tree if n != "lower.prep")
+    assert set(names) == set(TREE) and names.count("lower.prep") == PREPS
+    assert all(names.count(n) == 1 for n in TREE if n != "lower.prep")
     for s in req.spans:
         parent = None if s.parent is None else req.spans[s.parent]
-        assert (parent.name if parent else None) == tree[s.name]
+        assert (parent.name if parent else None) == TREE[s.name]
         assert s.start <= s.end
         if parent is not None:
             assert parent.start <= s.start and s.end <= parent.end
         assert s.device_ms is None                   # no timing events on the CPU
     assert req.error is None
-    assert req.counters == dict.fromkeys(profiling.COUNTERS, 0)   # nothing moved
+    # nothing moved; the request's two clips sorted on the device
+    assert req.counters == {**dict.fromkeys(profiling.COUNTERS, 0), "sort.device_clips": 2}
 
 
 def test_explain_records_the_span_tree(svc):
     got, out = _recorded(lambda: svc.explain(_wavs(1), "class1"))
     assert len(got) == 1
-    _check_tree(got[0], TREE)
+    _check_tree(got[0])
     assert out["standard_relevance"].shape == (2,)
 
 
@@ -84,7 +83,7 @@ def test_explain_stream_keeps_interleaved_requests_apart(svc):
     got, outs = _recorded(lambda: list(svc.explain_stream(iter(reqs))))
     assert len(got) == 2 and len(outs) == 2 and got[0].id != got[1].id
     for req in got:
-        _check_tree(req, STREAM_TREE)
+        _check_tree(req)
     first, second = got
     span = {(r.id, s.name): s for r in got for s in r.spans}
     # request 2 is dispatched before request 1 is finalized, each under its own id
@@ -136,7 +135,7 @@ def test_spans_outside_a_request_record_nothing(svc):
     profiling.count_copy("h2d_bytes", torch.zeros(2), torch.empty(0, device="meta"))
     profiling.mark_done()
     profiling.wait_device()
-    heat, logits = svc._dispatch(_wavs(5), "class1")
+    heat = svc._dispatch(_wavs(5), "class1")[0]
     assert heat.shape[:2] == (2, 3) and len(rec.requests()) == n
 
 
