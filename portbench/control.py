@@ -37,8 +37,7 @@ def tf32(on: bool) -> None:
 
 def _served(ctx, entry, capture, calls):
     """[(result, desc, captured log-mel)] of the entry's requests ``calls``."""
-    capture.want, capture.calls = set(range(len(calls))), 0
-    capture.kept.clear()
+    capture.start(set(range(len(calls))))
     outs = [entry.slice(ctx, i) for i in calls]
     return [(out, desc, capture.host(j)) for j, (out, desc) in enumerate(outs)]
 

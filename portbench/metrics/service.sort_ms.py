@@ -1,9 +1,9 @@
-"""The median over the traced window's requests of the service's
-``sort`` stage, ms (pb.spans.StageSpans)."""
+"""The median over the window's requests of the device ms of the program's
+span ``service.device_sort``: the subspace sort of the maps on the device
+(pb.request_log)."""
 
-from pb.stats import median
+from pb.request_log import window_median
 
 
 def read(run):
-    vals = [s["sort"] for s in (run.stages or []) if "sort" in s]
-    return median(vals) if vals else None
+    return window_median(run, lambda r: r.device_ms("service.device_sort"))

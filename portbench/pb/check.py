@@ -131,7 +131,7 @@ def reference_outputs(model, cfg: dict, wavs: torch.Tensor, U: torch.Tensor, cla
     mels, heats, logits = [], [], []
     with torch.no_grad():
         for i in range(0, wavs.shape[0], block):
-            mel = frontend.logmel(frontend.peak_normalize(wavs[i:i + block]), cfg)
+            mel = frontend.features(wavs[i:i + block], cfg)
             h, lg = model.explain(mel[:, None], U, class_idx)
             mels.append(mel.cpu().numpy())
             heats.append(h.cpu().numpy())

@@ -15,19 +15,43 @@ import math
 import torch
 
 
+def blocks(cfg: dict) -> list[dict]:
+    """The conv blocks, one ``{"filters", "depth", "pool"}`` a block: the
+    configuration's ``blocks``, or one a filter count of ``n_filters`` at
+    ``block_depth`` with its ``pool_kernels`` entry."""
+    if "blocks" in cfg:
+        return cfg["blocks"]
+    return [{"filters": f, "depth": cfg["block_depth"], "pool": list(p)}
+            for f, p in zip(cfg["n_filters"], cfg["pool_kernels"])]
+
+
+def dense(cfg: dict) -> list[dict]:
+    """The hidden dense layers, one ``{"out", "relu", "bn", "dropout"}`` a
+    layer (the class layer comes after them): the configuration's ``dense``,
+    or ``dense_depth`` layers of ``n_dense``, each with a ReLU, BatchNorm as
+    ``dense_bn`` says and dropout at ``dropout``."""
+    if "dense" in cfg:
+        return [{"relu": True, "bn": False, "dropout": 0.0, **d} for d in cfg["dense"]]
+    return [{"out": cfg["n_dense"], "relu": True, "bn": cfg["dense_bn"],
+             "dropout": cfg["dropout"]}] * cfg["dense_depth"]
+
+
 def layer_plan(cfg: dict) -> list[dict]:
-    """[conv -> (bn) -> relu] * block_depth -> maxpool per block, flatten,
-    [linear -> (bn1d) -> relu -> (dropout)] * dense_depth -> linear."""
+    """[conv -> (bn) -> relu] * depth -> maxpool per block, flatten,
+    [linear -> (bn1d) -> (relu) -> (dropout)] per dense layer -> linear to
+    the classes (``blocks`` and ``dense``; BatchNorm after the convs where
+    ``conv_bn``)."""
     plan, idx, in_ch = [], 0, 1
     h, w = cfg["n_mels"], cfg["mel_width"]
     kh, kw = cfg["conv_kernel"]
-    for filters, pool in zip(cfg["n_filters"], cfg["pool_kernels"]):
-        for d in range(cfg["block_depth"]):
+    for blk in blocks(cfg):
+        filters, pool = blk["filters"], blk["pool"]
+        for d in range(blk["depth"]):
             plan.append({"kind": "conv", "name": f"features.{idx}",
                          "in_ch": in_ch if d == 0 else filters, "out_ch": filters,
                          "kernel": [kh, kw], "hw": [h, w]})
             idx += 1
-            if cfg["conv_bn"]:
+            if cfg.get("conv_bn", False):
                 plan.append({"kind": "batchnorm", "name": f"features.{idx}", "ch": filters})
                 idx += 1
             plan.append({"kind": "relu", "name": f"features.{idx}", "hw": [h, w], "ch": filters})
@@ -40,19 +64,20 @@ def layer_plan(cfg: dict) -> list[dict]:
     n_in = h * w * in_ch
     plan.append({"kind": "flatten", "name": "flatten", "features": n_in})
     idx = 0
-    for _ in range(cfg["dense_depth"]):
+    for layer in dense(cfg):
         plan.append({"kind": "linear", "name": f"classifier.{idx}", "in_f": n_in,
-                     "out_f": cfg["n_dense"]})
+                     "out_f": layer["out"]})
         idx += 1
-        if cfg["dense_bn"]:
-            plan.append({"kind": "batchnorm1d", "name": f"classifier.{idx}", "ch": cfg["n_dense"]})
+        if layer["bn"]:
+            plan.append({"kind": "batchnorm1d", "name": f"classifier.{idx}", "ch": layer["out"]})
             idx += 1
-        plan.append({"kind": "relu", "name": f"classifier.{idx}"})
-        idx += 1
-        if cfg["dropout"]:
-            plan.append({"kind": "dropout", "name": f"classifier.{idx}", "rate": cfg["dropout"]})
+        if layer["relu"]:
+            plan.append({"kind": "relu", "name": f"classifier.{idx}"})
             idx += 1
-        n_in = cfg["n_dense"]
+        if layer["dropout"]:
+            plan.append({"kind": "dropout", "name": f"classifier.{idx}", "rate": layer["dropout"]})
+            idx += 1
+        n_in = layer["out"]
     plan.append({"kind": "linear", "name": f"classifier.{idx}", "in_f": n_in,
                  "out_f": cfg["n_classes"]})
     return plan

@@ -7,20 +7,32 @@ from __future__ import annotations
 
 import numpy as np
 
+from pb.model import layer_plan
+
 PACKAGE = "drsa_audio_tpu_torch"
+
+# the config keys of each layer kind, as the program's build_layer_specs writes them
+SPEC_KEYS = {"conv": ("in_ch", "out_ch", "kernel"), "batchnorm": ("ch",), "relu": (),
+             "maxpool": ("kernel",), "flatten": ("features",), "linear": ("in_f", "out_f"),
+             "batchnorm1d": ("ch",), "dropout": ("rate",)}
+
+
+def layer_specs(cfg: dict) -> list:
+    """The program's ``LayerSpec`` list of the configuration's layer plan."""
+    from drsa_audio_tpu_torch.models.vgg import LayerSpec
+    specs = []
+    for ly in layer_plan(cfg):
+        conf = {k: tuple(ly[k]) if isinstance(ly[k], list) else ly[k]
+                for k in SPEC_KEYS[ly["kind"]]}
+        specs.append(LayerSpec(ly["kind"], ly["name"], conf))
+    return specs
 
 
 def service(cfg: dict, params: dict, U, device):
-    from drsa_audio_tpu_torch.models.vgg import VGGConfig, build_layer_specs, fold_batchnorm
+    from drsa_audio_tpu_torch.models.vgg import fold_batchnorm
     from drsa_audio_tpu_torch.serving import ExplainerService
-    vgg = VGGConfig(n_filters=tuple(cfg["n_filters"]), conv_kernel=tuple(cfg["conv_kernel"]),
-                    pool_kernels=tuple(tuple(p) for p in cfg["pool_kernels"]),
-                    n_dense=cfg["n_dense"], n_classes=cfg["n_classes"], dropout=cfg["dropout"],
-                    block_depth=cfg["block_depth"], dense_depth=cfg["dense_depth"],
-                    input_size=(cfg["n_mels"], cfg["mel_width"]), conv_bn=cfg["conv_bn"],
-                    dense_bn=cfg["dense_bn"])
-    specs = build_layer_specs(vgg)
-    if cfg["conv_bn"] or cfg["dense_bn"]:
+    specs = layer_specs(cfg)
+    if any(s.kind in ("batchnorm", "batchnorm1d") for s in specs):
         specs, params = fold_batchnorm(specs, params)
     name_map = [(n, (r, dict(kw))) for n, r, kw in cfg["rules"]]
     mapper = {c: i for i, c in enumerate(cfg["classes"])}

@@ -39,18 +39,21 @@ class Patches:
 
 
 class Capture:
-    """Keeps, for chosen calls, the log-mel the front-end returned (a device
-    tensor, no copy in the window).
+    """Keeps, for chosen calls, the log-mel the front-end returned: copied on
+    the device into one block, made at the first call kept, so that which
+    calls are kept changes nothing the device allocator holds.
     Calls are counted from 0 in the order the program makes them."""
 
     def __init__(self):
-        self.calls = 0
-        self.want: set = set()
-        self.kept: dict = {}
+        self.start(set())
         self.recent = collections.deque(maxlen=2)
         self.patches = Patches()
         serving = importlib.import_module(SERVING)
         self.installed = self.patches.wrap(serving, "logmel", self._make)
+
+    def start(self, want: set) -> None:
+        """Count calls from 0 again and keep those in ``want``."""
+        self.calls, self.want, self.kept, self.block = 0, set(want), {}, None
 
     def _make(self, fn):
         def logmel(wav, *args, **kwargs):
@@ -58,7 +61,9 @@ class Capture:
             i = self.calls
             self.calls += 1
             if i in self.want:
-                self.kept[i] = out
+                if self.block is None:
+                    self.block = out.new_empty((len(self.want), *out.shape))
+                self.kept[i] = self.block[len(self.kept)].copy_(out)
             self.recent.append((i, out))
             return out
         return logmel
@@ -76,9 +81,9 @@ class StageSpans:
     """The service's stages per request, as ``chip_smoke.staged_request``
     took them: CUDA events where each device stage ends (so the device
     stages are contiguous spans of the device's timeline), the device
-    synchronised before the readback, and the host clock around the readback
-    and the sort. One dict of ms a request; a stage whose function is gone
-    is missing from it."""
+    synchronised before the readback, and the host clock around the readback.
+    One dict of ms a request; a stage whose function is gone is missing from
+    it."""
 
     ORDER = ["start", "uploaded", "frontend", "forward_upper", "lower"]
 
@@ -96,7 +101,6 @@ class StageSpans:
         self.patches.wrap(explain, "explain_forward_upper", self._device("forward_upper"))
         self.patches.wrap(explain, "explain_lower", self._device("lower"))
         self.patches.wrap(svc, "_finalize", self._host_stage("readback", sync=True))
-        self.patches.wrap(serving, "sort_subspaces", self._host_stage("sort"))
         self.svc = svc
 
     def _mark(self, name):
@@ -150,9 +154,7 @@ class StageSpans:
                 if a in events and b in events:
                     row[b] = events[a].elapsed_time(events[b])
             if "readback" in host:
-                row["readback"] = host["readback"] - host.get("sort", 0.0)
-            if "sort" in host:
-                row["sort"] = host["sort"]
+                row["readback"] = host["readback"]
             out.append(row)
         return out
 
@@ -165,8 +167,7 @@ class Labels:
     NAMES = [(SERVING, "peak_normalize", "frontend.peak_normalize"),
              (SERVING, "logmel", "frontend.logmel"),
              (EXPLAIN, "explain_forward_upper", "explain_forward_upper"),
-             (EXPLAIN, "explain_lower", "explain_lower"),
-             (SERVING, "sort_subspaces", "service.sort_subspaces")]
+             (EXPLAIN, "explain_lower", "explain_lower")]
 
     def __init__(self, svc):
         from torch.profiler import record_function

@@ -28,17 +28,16 @@ def _add(acc, key, ow):
 def request_work(cfg: dict, b: int) -> dict:
     """{"frontend", "forward", "upper", "lower", "total"}: (operations,
     bytes) of one request of ``b`` clips."""
-    from reference.frontend import htk_filterbank
+    from reference import frontend
     K, d = cfg["num_concepts"], cfg["subspace_dim"]
     rules = {n: (r, kw) for n, r, kw in cfg["rules"]}
     plan = layer_plan(cfg)
     at = next(i for i, ly in enumerate(plan) if ly["name"] == f"features.{cfg['drsa_layer']}")
     acc: dict = {}
-    samples = cfg["slice_length"] * cfg["sample_rate"]
-    frames = samples // cfg["hop_length"] + 1
-    nnz = int(np.count_nonzero(htk_filterbank(cfg["n_fft"] // 2 + 1, cfg["n_mels"],
-                                              cfg["sample_rate"])))
-    _add(acc, "frontend", kind("frontend")(b, samples, frames, cfg["n_fft"], cfg["n_mels"], nnz))
+    samples = frontend.settings(cfg)["clip_samples"]
+    nnz = int(np.count_nonzero(frontend.filterbank(cfg)))
+    _add(acc, "frontend", kind("frontend")(b, samples, frontend.n_frames(cfg), cfg["n_fft"],
+                                           cfg["n_mels"], nnz))
     n = plan[at]["hw"][0] * plan[at]["hw"][1]
     # the projection and its inverse in the forward pass
     _add(acc, "forward", kind("epsilon")(b, 0, n, d, d, forward=True))

@@ -175,9 +175,7 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
         entry.setup(ctx)
         _sync(device)
         keep_set = sampled(seed, traffic)
-        capture.want = set(keep_set)
-        capture.calls = 0
-        capture.kept.clear()
+        capture.start(keep_set)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         from drsa_audio_tpu_torch.xai.lrp import chain

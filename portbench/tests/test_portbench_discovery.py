@@ -1,10 +1,14 @@
 """Every cell's files are found by name, and a cell, configuration, entry
 and metric added only as new files (plus entries in BENCHMARK.json) are
-found and parsed by the harness, with no edit to a file that is there."""
+found and parsed by the harness, with no edit to a file that is there: a
+configuration that states its own layer pattern and front-end is drawn,
+counted, built into the program's specs and explained by the reference."""
 
 import importlib.util
 import json
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -34,8 +38,9 @@ def test_new_files_are_found_without_editing_any(tmp_path):
     before = {p: p.read_bytes() for p in (root / "portbench").rglob("*") if p.is_file()}
     bench = json.loads(json.dumps(BENCH))
     pb = root / "portbench"
-    cfg = json.loads((pb / "configs" / "gtzan3s.json").read_text())
-    cfg["name"] = "newmodel"
+    # the new model states its layer pattern and front-end: VGGish's blocks
+    # of depth 1, 1, 2, 2, a linear embedding, 0.96 s uncentred framing
+    cfg = {**tiny.vggish_pattern(), **tiny.VGGISH_FRONTEND, "name": "newmodel"}
     (pb / "configs" / "newmodel.json").write_text(json.dumps(cfg))
     (pb / "traffic" / "newmix.json").write_text(json.dumps({"entry": "newentry", "batch": 2}))
     (pb / "entries" / "newentry.py").write_text(
@@ -66,5 +71,41 @@ def test_new_files_are_found_without_editing_any(tmp_path):
     assert {m["name"] for m in c["end_to_end"]} == {"clips_per_s", "setup_s"}
     # the existing cells are untouched, and no existing file changed
     assert run.resolve(run.read_json(root / "BENCHMARK.json"), "gtzan3s.serve_b256")["per_layer"]
+    # the copy alone (and the program) draws, counts, builds and checks it
+    out = subprocess.run([sys.executable, "-c", NEW_MODEL.format(pb=str(pb), repo=str(tiny.REPO))],
+                         capture_output=True, text=True, timeout=300, cwd=str(root))
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["pb"] == str(pb)
+    assert got["convs"] == [8, 8, 16, 16, 16, 16] and got["frames"] == 96
+    assert got["dense"] == ["linear", "relu", "linear", "relu", "linear", "linear"]
+    assert got["specs"] == got["plan"] and got["work"] > 0
+    assert got["mel"] == [2, 64, 96] and got["heat"] == [2, 5, 64, 96]
     for p, data in before.items():
         assert p.read_bytes() == data
+
+
+NEW_MODEL = r"""
+import json, sys
+sys.path.insert(0, {pb!r}); sys.path.append({repo!r})
+import torch
+import run
+from pb import model, program, work
+from reference import frontend, lrp
+c = run.resolve(run.read_json(run.REPO / "BENCHMARK.json"), "newmodel.newmix")
+cfg = c["cfg"]
+plan = model.layer_plan(cfg)
+params, U = model.draw(cfg, 2 ** 31 + 9, "cpu")
+wavs = (torch.randn(2, frontend.settings(cfg)["clip_samples"]) * 0.3).clamp(-1, 1)
+mel = frontend.features(wavs, cfg)
+with torch.no_grad():
+    heat, logits = lrp.Model(cfg, params).explain(mel[:, None], U[0], 0)
+print(json.dumps({{
+    "pb": str(run.HERE), "frames": frontend.n_frames(cfg),
+    "convs": [ly["out_ch"] for ly in plan if ly["kind"] == "conv"],
+    "dense": [ly["kind"] for ly in plan if ly["name"].startswith("classifier")],
+    "plan": [[ly["kind"], ly["name"]] for ly in plan],
+    "specs": [[s.kind, s.name] for s in program.layer_specs(cfg)],
+    "work": work.request_work(cfg, 2)["total"][0],
+    "mel": list(mel.shape), "heat": list(heat.shape)}}))
+"""

@@ -1,6 +1,8 @@
+import types
+
 import pytest
 
-from tests import tiny  # noqa: F401  (puts the harness on the path)
+from tests import tiny
 from pb import stats
 
 
@@ -40,3 +42,13 @@ def test_empty_window_raises():
         stats.window_rate([], 1.0, 1.0)
     with pytest.raises(ValueError):
         stats.percentile([], 50)
+
+
+def test_the_per_layer_tail_reads_as_the_end_to_end_one():
+    recs = [(0.0, 0.001 * (i + 1), 8) for i in range(100)]
+    run = types.SimpleNamespace(window={"records": recs})
+    e2e = tiny.run.load("metrics", "request_ms_p95").read(run)
+    assert tiny.run.load("metrics", "service.request_p95_ms").read(run) == e2e
+    assert e2e == pytest.approx(95.05)
+    run.window["records"] = []
+    assert tiny.run.load("metrics", "service.request_p95_ms").read(run) is None
