@@ -37,19 +37,32 @@
 //                per slice), times x, written or routed through the pool
 //                backward to the finer level. A tile's K clones are
 //                neighbours in the grid, so that G, x and apre come from L2
-//                for all but the first.
+//                for all but the first. A conv over 128 channels sums each
+//                8-channel slice in the core and adds the slices in f32
+//                with round-to-nearest (PER_SLICE): over the 32 or 64
+//                slices of 256 or 512 channels the core's truncation
+//                drifted past rtol 1e-4 of the f64 sums on Gaussian data.
 //
-// Tiles (Geo). A block is two warpgroups over a TH x 8 pixel tile, each
-// warpgroup MT m64 tiles (8 rows of 8); a warpgroup whose tiles all lie
-// below the image skips its products. MT = 2 (TH = 32) where the B tile is
-// 32 columns or fewer and the level 32 rows or more, so that a wgmma group
-// holds six products and each staged slice of taps serves 256 pixels;
-// else MT = 1 (TH = 16). The
+// Tiles (Geo). A block is two warpgroups over a TH x TW pixel tile, each
+// warpgroup MT m64 tiles (64 / TW rows of TW); a warpgroup whose tiles all
+// lie below the image skips its products. TW = 8, and MT = 2 (TH = 32)
+// where the B tile is 32 columns or fewer and the level 32 rows or more,
+// so that a wgmma group holds six products and each staged slice of taps
+// serves 256 pixels; else MT = 1 (TH = 16). A conv over 128 channels on a
+// level of 8 rows or fewer and more than 8 columns (VGGish's 8 x 12) takes
+// TW = 16 instead (MT = 1, TH = 8): at TW = 8 its 16-row tile would leave
+// the second warpgroup below the image and half the second tile's columns
+// empty (96 of 256 pixels held), at TW = 16 one 8 x 16 tile holds 96 of
+// 128; its stage is as large (10 x 18 pixels against 18 x 10). VGGish's
+// 8 x 12 block (256 -> 512 -> 512, b = 256, K = 4) took 16.9 ms at TW = 16
+// against 23.0 ms at TW = 8 on an H100 SXM at 700 W. The
 // prep's N = 2*Co runs in column chunks of BN = 32 (16 for Co = 8), so that
 // its FRESH scratch fragments fit beside the accumulators; the apply takes
-// all of Ci in one tile of BN columns (8 ... 64, 104, 128). The host lays
-// the taps out at these widths (xai/lrp/chain.py prep_chunk, wg_cols) and
-// passes BN; the kernels take it from there and refuse a width they lack.
+// all of Ci in one tile of BN columns (8 ... 64, 104, 128) up to 128
+// channels, and for a conv over 128 channels (in or out) in chunks of BN =
+// 128 columns, one a grid column (z). The host lays the taps out at these
+// widths (xai/lrp/chain.py prep_chunk, apply_chunk) and passes BN; the
+// kernels take it from there and refuse a width they lack.
 // A stage holds the two staged regions and the taps (576 * BN bytes): two
 // blocks an SM up to 64 columns, one for the apply's 104 and 128 (the 6s
 // 8^2 and 16^2 levels and the 100-channel convs' applies). The epilogues go
@@ -65,9 +78,17 @@
 //              32^2 ->100:   prep 4x7x64;    apply (8x4)x64, BN 64 / 104
 //              64^2 64->64:  prep 16x4x64;   apply (32x4)x64, BN 64
 //   deep prep  128x256 64->64 (first_block_deep.cu): 128x4x64
+//   VGGish b=256, 64x96 mels, DRSA at features.14 (apply grids x chunks):
+//              8x12 512->512:  prep 1x32x256 (TW 16); apply (1x4)x256x4, BN 128, TW 16
+//              8x12 256->512:  prep 1x32x256 (TW 16); apply (1x4)x256x2, BN 128, TW 16
+//              16x24 256->256: prep 3x16x256;  apply (3x4)x256x2, BN 128
+//              16x24 128->256: prep 3x16x256;  apply (3x4)x256, BN 128
+//              32x48 64->128:  prep 6x8x256;   apply (12x4)x256, BN 64
 //
 // Channel counts: multiples of 8 or of 20 up to 128 (8, 16, 32, 64, 100,
-// 128 in the repo's models); others are refused before any launch. The
+// 128 in the repo's models), and multiples of 64 from 192 to 512 (VGGish's
+// 256 and 512; the reduction then runs over up to 64 slices, and the prep
+// over up to 32 column chunks); others are refused before any launch. The
 // reduction runs in slices of 8 (a short last slice has zero taps and
 // zero-filled activations) and N pads with zero taps to the tile's width.
 // Tensors must be 16-byte aligned (cp.async, the bulk copies).
@@ -97,17 +118,26 @@ namespace {
 using tc::CC;
 using tc::SP;
 
-constexpr int THREADS = 256, TW = 8, RW = TW + 2;
+constexpr int THREADS = 256;
 constexpr int BARS = 4;                          // floats before the stages: two mbarriers
 
-// The channel counts the kernels take.
-inline bool takes(int C) { return C > 0 && C <= 128 && (C % 8 == 0 || C % 20 == 0); }
+// The channel counts the kernels take (xai/lrp/chain.py chain_takes).
+inline bool takes(int C) {
+  return (C > 0 && C <= 128 && (C % 8 == 0 || C % 20 == 0)) ||
+         (C >= 192 && C <= 512 && C % 64 == 0);
+}
 
-// A block's geometry for BN columns and MT m64 tiles a warpgroup.
-template <int BN, int MT_>
+// A conv over 128 channels on a short, wide level: the 8 x 16 tile.
+inline bool short_wide(int H, int W, int Ci, int Co) {
+  return H <= 8 && W > 8 && (Ci > 128 || Co > 128);
+}
+
+// A block's geometry for BN columns, MT m64 tiles a warpgroup and tiles TW
+// pixels wide.
+template <int BN, int MT_, int TW_ = 8>
 struct Geo {
-  static constexpr int MT = MT_;
-  static constexpr int TH = 16 * MT;                        // two warpgroups of MT m64 tiles
+  static constexpr int MT = MT_, TW = TW_, RW = TW + 2;
+  static constexpr int TH = 2 * MT * 64 / TW;               // two warpgroups of MT m64 tiles
   static constexpr int NQ = (TH + 2) * RW, A = NQ * SP;     // staged region: tile + halo
   static constexpr int TAPS = wg::taps_floats<BN>();
   // a stage: the taps, then two regions (x and the split's lo, or R and G;
@@ -140,7 +170,7 @@ __device__ __forceinline__ float4 routed(float4 v, int4 win, int p) {
                      win.w == p ? v.w : 0.f);
 }
 
-template <int BN, int MT>
+template <int BN, int MT, int TW_>
 __global__ void __launch_bounds__(THREADS, 2)
 gamma_prep_wg(const float* __restrict__ x,     // [b, H, W, Ci]
               const float* __restrict__ w,     // [chunks, nsl, 2, 9, 2, BN, 4]
@@ -148,8 +178,9 @@ gamma_prep_wg(const float* __restrict__ x,     // [b, H, W, Ci]
               const float* __restrict__ apre,  // [b, H, W, Co] or null
               float* __restrict__ G,           // [b, H, W, Co]
               int H, int W, int Ci, int Co, int kh, int kw, float inv, float stab) {
-  using Gm = Geo<BN, MT>;
-  constexpr int TH = Gm::TH, NQ = Gm::NQ, A = Gm::A, TAPS = Gm::TAPS, STAGE = Gm::STAGE;
+  using Gm = Geo<BN, MT, TW_>;
+  constexpr int TH = Gm::TH, TW = Gm::TW, RW = Gm::RW, NQ = Gm::NQ, A = Gm::A,
+                TAPS = Gm::TAPS, STAGE = Gm::STAGE;
   // FRESH's scratch fragments leave room for two groups in flight at one
   // tile a warpgroup, one at two
   constexpr int DEPTH = MT == 1 ? 2 : 1;
@@ -249,24 +280,27 @@ gamma_prep_wg(const float* __restrict__ x,     // [b, H, W, Ci]
   }
 }
 
-template <int BN, int MT>
+template <int BN, int MT, int TW_, bool PER_SLICE>
 __global__ void __launch_bounds__(THREADS, BN <= 64 ? 2 : 1)
 gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
                const float* __restrict__ G,     // [b, H, W, Co]
                const float* __restrict__ x,     // [b, H, W, Ci]
-               const float* __restrict__ wt,    // [nsl, 2, 9, 2, BN, 4]
+               const float* __restrict__ wt,    // [chunks, nsl, 2, 9, 2, BN, 4]
                const float* __restrict__ apre,  // [b, H*kh, W*kw, Ci] or null
                float* __restrict__ out,         // [b, K, H*kh, W*kw, Ci]
                int K, int H, int W, int Ci, int Co, int kh, int kw) {
-  using Gm = Geo<BN, MT>;
-  constexpr int TH = Gm::TH, NQ = Gm::NQ, A = Gm::A, TAPS = Gm::TAPS, STAGE = Gm::STAGE;
+  using Gm = Geo<BN, MT, TW_>;
+  constexpr int TH = Gm::TH, TW = Gm::TW, RW = Gm::RW, NQ = Gm::NQ, A = Gm::A,
+                TAPS = Gm::TAPS, STAGE = Gm::STAGE;
   // wgmma groups in flight: as many as the registers allow beside the
   // accumulators at two blocks an SM (one past 64 columns)
   constexpr int DEPTH = MT == 2 ? 2 : 3;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  const int n = blockIdx.y, k = blockIdx.x % K, tile = blockIdx.x / K;
+  // grid column z: the chunk of BN input channels from c0 (z = 0 up to 128)
+  const int n = blockIdx.y, k = blockIdx.x % K, tile = blockIdx.x / K, c0 = blockIdx.z * BN;
+  const int nsl = (Co + CC - 1) / CC;
   const int tiles_w = (W + TW - 1) / TW;
   const int h0 = (tile / tiles_w) * TH, w0 = (tile % tiles_w) * TW;
   const int wgi = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3;
@@ -274,6 +308,7 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
   const size_t img = (size_t)n * K + k;
   const float* Rn = R + img * H * W * Co;
   const float* Gn = G + (size_t)n * H * W * Co;
+  const float* wb = wt + (size_t)blockIdx.z * nsl * TAPS;
   int lrow[MT];
   const int nt = wg::tile_rows<MT, TW, RW>(lrow, wgi, h0, H);
   float acc[MT][BN / 2] = {};
@@ -285,13 +320,13 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
   __syncthreads();
 
   tc::pipeline(
-      (Co + CC - 1) / CC,
+      nsl,
       [&](int s) {
         float* buf = smem + BARS + (s & 1) * STAGE;
         tc::stage_region(buf + TAPS, Rn, TH + 2, RW, h0 - 1, w0 - 1, H, W, Co, s * CC);
         tc::stage_region(buf + TAPS + A, Gn, TH + 2, RW, h0 - 1, w0 - 1, H, W, Co, s * CC);
         tc::cp_commit();
-        if (threadIdx.x == 0) wg::bulk_load(buf, wt + (size_t)s * TAPS, TAPS * 4, &bars[s & 1]);
+        if (threadIdx.x == 0) wg::bulk_load(buf, wb + (size_t)s * TAPS, TAPS * 4, &bars[s & 1]);
       },
       [&](int s) {
         float* buf = smem + BARS + (s & 1) * STAGE;   // taps; R, then hi; G, then lo
@@ -302,9 +337,23 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
         });
         wg::bar_wait(&bars[s & 1], (s >> 1) & 1);
         __syncthreads();
-        if (nt > 0)
-          wg::slice<BN, false, DEPTH, MT>(acc, wg::saddr(hi), wg::saddr(hi + A), lrow, RW,
-                                          wg::saddr(buf));
+        if (nt > 0) {
+          if constexpr (PER_SLICE) {
+            // the slice's sums in the core, added to acc in f32 with
+            // round-to-nearest: the core's truncation drifts over one
+            // slice's 27 products, not over the whole reduction
+            float part[MT][BN / 2] = {};
+            wg::slice<BN, false, DEPTH, MT>(part, wg::saddr(hi), wg::saddr(hi + A), lrow, RW,
+                                            wg::saddr(buf));
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int e = 0; e < BN / 2; ++e) acc[i][e] = __fadd_rn(acc[i][e], part[i][e]);
+          } else {
+            wg::slice<BN, false, DEPTH, MT>(acc, wg::saddr(hi), wg::saddr(hi + A), lrow, RW,
+                                            wg::saddr(buf));
+          }
+        }
       });
 
   // the sums through shared memory (the stages are free after the
@@ -324,7 +373,7 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
             make_float2(acc[i][4 * j + 2 * hf], acc[i][4 * j + 2 * hf + 1]);
     }
   __syncthreads();
-  const int nc = Ci / 4, Hf = H * kh, Wf = W * kw;
+  const int nc = min(BN, Ci - c0) / 4, Hf = H * kh, Wf = W * kw;
   const float* xn = x + (size_t)n * H * W * Ci;
   const float* an = apre != nullptr ? apre + (size_t)n * Hf * Wf * Ci : nullptr;
   float* on = out + img * Hf * Wf * Ci;
@@ -332,9 +381,10 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
     const int m = e / nc, c = (e % nc) * 4;
     const int h = h0 + m / TW, ww = w0 + m % TW;
     if (h >= H || ww >= W) continue;
-    const float4 v = tc::mul4(*reinterpret_cast<const float4*>(xn + ((size_t)h * W + ww) * Ci + c),
-                              *reinterpret_cast<const float4*>(as + m * AS + c));
-    const size_t at = ((size_t)h * kh * Wf + ww * kw) * Ci + c;    // the window's first pixel
+    const float4 v =
+        tc::mul4(*reinterpret_cast<const float4*>(xn + ((size_t)h * W + ww) * Ci + c0 + c),
+                 *reinterpret_cast<const float4*>(as + m * AS + c));
+    const size_t at = ((size_t)h * kh * Wf + ww * kw) * Ci + c0 + c;   // the window's first pixel
     if (an == nullptr) {
       *reinterpret_cast<float4*>(on + at) = v;
       continue;
@@ -347,31 +397,39 @@ gamma_apply_wg(const float* __restrict__ R,     // [b, K, H, W, Co]
   }
 }
 
-template <int BN, int MT>
-constexpr size_t smem_bytes() { return sizeof(float) * (BARS + 2 * Geo<BN, MT>::STAGE); }
+template <int BN, int MT, int TW = 8>
+constexpr size_t smem_bytes() { return sizeof(float) * (BARS + 2 * Geo<BN, MT, TW>::STAGE); }
 
-template <int BN, int MT>
+// The 8 x 16 tiles stage as many pixels as the 16 x 8 ones, so the shared
+// memory a width takes does not depend on the tile (chain_gamma_smem).
+static_assert(smem_bytes<32, 1, 16>() == smem_bytes<32, 1>() &&
+                  smem_bytes<128, 1, 16>() == smem_bytes<128, 1>(),
+              "the 8 x 16 tile's stage differs from the 16 x 8 tile's");
+
+template <int BN, int MT, int TW = 8>
 cudaError_t launch_prep(int b, cudaStream_t st, const float* x, const float* w,
                         const float* bias, const float* apre, float* G, int H, int W, int Ci,
                         int Co, int kh, int kw, float inv, float stab) {
-  constexpr int TH = Geo<BN, MT>::TH;
+  constexpr int TH = Geo<BN, MT, TW>::TH;
+  constexpr size_t bytes = smem_bytes<BN, MT, TW>();
   const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (2 * Co + BN - 1) / BN, b);
-  cudaError_t err = lrp::set_smem(gamma_prep_wg<BN, MT>, smem_bytes<BN, MT>());
+  cudaError_t err = lrp::set_smem(gamma_prep_wg<BN, MT, TW>, bytes);
   if (err != cudaSuccess) return err;
-  gamma_prep_wg<BN, MT><<<grid, THREADS, smem_bytes<BN, MT>(), st>>>(
-      x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
+  gamma_prep_wg<BN, MT, TW><<<grid, THREADS, bytes, st>>>(x, w, bias, apre, G, H, W, Ci, Co,
+                                                          kh, kw, inv, stab);
   return cudaGetLastError();
 }
 
-template <int BN, int MT>
+template <int BN, int MT, int TW = 8, bool PER_SLICE = false>
 cudaError_t launch_apply(int b, cudaStream_t st, const float* R, const float* G,
                          const float* x, const float* wt, const float* apre, float* out, int K,
                          int H, int W, int Ci, int Co, int kh, int kw) {
-  constexpr int TH = Geo<BN, MT>::TH;
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW) * K, b);
-  cudaError_t err = lrp::set_smem(gamma_apply_wg<BN, MT>, smem_bytes<BN, MT>());
+  constexpr int TH = Geo<BN, MT, TW>::TH;
+  constexpr size_t bytes = smem_bytes<BN, MT, TW>();
+  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW) * K, b, (Ci + BN - 1) / BN);
+  cudaError_t err = lrp::set_smem(gamma_apply_wg<BN, MT, TW, PER_SLICE>, bytes);
   if (err != cudaSuccess) return err;
-  gamma_apply_wg<BN, MT><<<grid, THREADS, smem_bytes<BN, MT>(), st>>>(
+  gamma_apply_wg<BN, MT, TW, PER_SLICE><<<grid, THREADS, bytes, st>>>(
       R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
   return cudaGetLastError();
 }
@@ -393,6 +451,9 @@ int chain_gamma_prep(const float* x, const float* w, const float* bias,
                      int Co, int BN, int kh, int kw, float inv, float stab, void* stream) {
   if (!takes(Ci) || !takes(Co) || !tc::aligned16(x) || !tc::aligned16(w))
     return cudaErrorInvalidValue;
+  if (short_wide(H, W, Ci, Co) && BN == 32)
+    return launch_prep<32, 1, 16>(b, (cudaStream_t)stream, x, w, bias, apre, G, H, W, Ci, Co, kh,
+                                  kw, inv, stab);
   return wg::prep_tile(BN, H, [&](auto bn, auto mt) {
     return launch_prep<decltype(bn)::value, decltype(mt)::value>(
         b, (cudaStream_t)stream, x, w, bias, apre, G, H, W, Ci, Co, kh, kw, inv, stab);
@@ -401,16 +462,25 @@ int chain_gamma_prep(const float* x, const float* w, const float* bias,
 
 // Phase 2. R [b,K,H,W,Co], G [b,H,W,Co], x [b,H,W,Ci], wt the transposed
 // w + g*w+, pre-split in one chunk of BN >= Ci columns (8 ... 64, 104 or
-// 128): [ceil(Co/8), 2, 9, 2, BN, 4] (GammaConv.w_apply_wg); apre
-// [b,H*kh,W*kw,Ci] or NULL; out [b,K,H,W,Ci] (no pool) or [b,K,H*kh,W*kw,Ci].
-// Refusals as phase 1, and for BN < Ci.
+// 128) up to 128 channels in and out, for a conv over 128 channels in
+// chunks of BN = 128: [ceil(Ci/BN), ceil(Co/8), 2, 9, 2, BN, 4]
+// (GammaConv.w_apply_wg); apre [b,H*kh,W*kw,Ci] or NULL; out [b,K,H,W,Ci]
+// (no pool) or [b,K,H*kh,W*kw,Ci]. Refusals as phase 1, and for BN < Ci up
+// to 128 channels or BN != 128 past them.
 int chain_gamma_apply(const float* R, const float* G, const float* x,
                       const float* wt, const float* apre, float* out, int b,
                       int K, int H, int W, int Ci, int Co, int BN, int kh, int kw,
                       void* stream) {
-  if (!takes(Ci) || !takes(Co) || BN < Ci || !tc::aligned16(R) || !tc::aligned16(G) ||
-      !tc::aligned16(wt) || !tc::aligned16(x) || !tc::aligned16(out))
+  const bool wide = Ci > 128 || Co > 128;
+  if (!takes(Ci) || !takes(Co) || (wide ? BN != 128 : BN < Ci) || !tc::aligned16(R) ||
+      !tc::aligned16(G) || !tc::aligned16(wt) || !tc::aligned16(x) || !tc::aligned16(out))
     return cudaErrorInvalidValue;
+  if (wide)
+    return short_wide(H, W, Ci, Co)
+               ? launch_apply<128, 1, 16, true>(b, (cudaStream_t)stream, R, G, x, wt, apre, out,
+                                                K, H, W, Ci, Co, kh, kw)
+               : launch_apply<128, 1, 8, true>(b, (cudaStream_t)stream, R, G, x, wt, apre, out,
+                                               K, H, W, Ci, Co, kh, kw);
   return wg::apply_tile(BN, H, [&](auto bn, auto mt) {
     return launch_apply<decltype(bn)::value, decltype(mt)::value>(
         b, (cudaStream_t)stream, R, G, x, wt, apre, out, K, H, W, Ci, Co, kh, kw);
@@ -418,8 +488,9 @@ int chain_gamma_apply(const float* R, const float* G, const float* x,
 }
 
 // The dynamic shared memory, bytes, a block of chain_gamma_prep (prep != 0)
-// or chain_gamma_apply takes for taps BN columns wide at a level of H rows;
-// 0 for a BN the kernel does not take.
+// or chain_gamma_apply takes for taps BN columns wide at a level of H rows
+// (the 8 x 16 tile's as its 16 x 8 one's); 0 for a BN the kernel does not
+// take.
 size_t chain_gamma_smem(int prep, int BN, int H) {
   const auto bytes = [](auto bn, auto mt) {
     return smem_bytes<decltype(bn)::value, decltype(mt)::value>();

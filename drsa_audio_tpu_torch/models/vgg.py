@@ -43,8 +43,22 @@ class LayerSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseLayer:
+    """One hidden dense layer: its width, and whether a BatchNorm, a ReLU
+    and a dropout follow it (in that order)."""
+    out: int
+    relu: bool = True
+    bn: bool = False
+    dropout: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class VGGConfig:
-    """Architecture hyperparameters (reference create_model.py:14-28)."""
+    """Architecture hyperparameters (reference create_model.py:14-28).
+    ``block_depths`` gives each block its own depth (None: ``block_depth``
+    for every block); ``dense_layers`` gives each hidden dense layer its
+    own width, ReLU, BatchNorm and dropout (None: ``dense_depth`` layers of
+    ``n_dense``, each with a ReLU, ``dense_bn`` and ``dropout``)."""
     n_filters: Sequence[int] = (32, 64, 96, 128)
     conv_kernel: tuple = (3, 3)
     pool_kernels: Sequence[tuple] = ((4, 4), (2, 4), (2, 2), (2, 2))
@@ -56,6 +70,22 @@ class VGGConfig:
     input_size: tuple = (128, 256)
     conv_bn: bool = True
     dense_bn: bool = True
+    block_depths: Sequence[int] | None = None
+    dense_layers: Sequence[DenseLayer] | None = None
+
+    @property
+    def depths(self) -> tuple:
+        """The depth of each block."""
+        if self.block_depths is not None:
+            return tuple(self.block_depths)
+        return (self.block_depth,) * len(self.n_filters)
+
+    @property
+    def hidden(self) -> tuple:
+        """The hidden dense layers, the class layer after them."""
+        if self.dense_layers is not None:
+            return tuple(self.dense_layers)
+        return (DenseLayer(self.n_dense, True, self.dense_bn, self.dropout),) * self.dense_depth
 
     @property
     def flat_features(self) -> int:
@@ -66,13 +96,14 @@ class VGGConfig:
 
 
 def build_layer_specs(cfg: VGGConfig) -> list[LayerSpec]:
-    """[Conv -> (BN) -> ReLU] * block_depth -> MaxPool per block, then
-    [Linear -> (BN1d) -> ReLU -> Dropout] * dense_depth -> Linear."""
+    """[Conv -> (BN) -> ReLU] * depth -> MaxPool per block, then
+    [Linear -> (BN1d) -> (ReLU) -> (Dropout)] per hidden dense layer ->
+    Linear."""
     specs: list[LayerSpec] = []
     idx = 0
     in_ch = 1
-    for block, filters in enumerate(cfg.n_filters):
-        for d in range(cfg.block_depth):
+    for block, (filters, depth) in enumerate(zip(cfg.n_filters, cfg.depths)):
+        for d in range(depth):
             specs.append(LayerSpec("conv", f"features.{idx}", {
                 "in_ch": in_ch if d == 0 else filters, "out_ch": filters,
                 "kernel": tuple(cfg.conv_kernel)}))
@@ -90,21 +121,22 @@ def build_layer_specs(cfg: VGGConfig) -> list[LayerSpec]:
     specs.append(LayerSpec("flatten", "flatten", {"features": cfg.flat_features}))
     idx = 0
     n_in = cfg.flat_features
-    for _ in range(cfg.dense_depth):
+    for layer in cfg.hidden:
         specs.append(LayerSpec("linear", f"classifier.{idx}",
-                               {"in_f": n_in, "out_f": cfg.n_dense}))
+                               {"in_f": n_in, "out_f": layer.out}))
         idx += 1
-        if cfg.dense_bn:
+        if layer.bn:
             specs.append(LayerSpec("batchnorm1d", f"classifier.{idx}",
-                                   {"ch": cfg.n_dense}))
+                                   {"ch": layer.out}))
             idx += 1
-        specs.append(LayerSpec("relu", f"classifier.{idx}", {}))
-        idx += 1
-        if cfg.dropout:
+        if layer.relu:
+            specs.append(LayerSpec("relu", f"classifier.{idx}", {}))
+            idx += 1
+        if layer.dropout:
             specs.append(LayerSpec("dropout", f"classifier.{idx}",
-                                   {"rate": cfg.dropout}))
+                                   {"rate": layer.dropout}))
             idx += 1
-        n_in = cfg.n_dense
+        n_in = layer.out
     specs.append(LayerSpec("linear", f"classifier.{idx}",
                            {"in_f": n_in, "out_f": cfg.n_classes}))
     return specs
@@ -459,3 +491,16 @@ def toy_config() -> VGGConfig:
                      pool_kernels=((2, 2),) * 5, dropout=0.0,
                      input_size=(64, 64), n_classes=2, conv_bn=False,
                      dense_bn=False, block_depth=1, dense_depth=2)
+
+
+def vggish_config() -> VGGConfig:
+    """VGGish (Hershey et al. 2017, arXiv:1609.09430; vggish_slim.py) on
+    [1, 64, 96] log-mels: 3x3 convs of 64, 128, 256, 256, 512 and 512
+    channels in blocks of depth 1, 1, 2, 2, each ending in a 2x2 max-pool;
+    fc 4096 and fc 4096 with ReLUs, the 128-wide embedding with none, then
+    a linear layer to 10 classes (VGGish publishes no classifier)."""
+    return VGGConfig(n_filters=(64, 128, 256, 512), block_depths=(1, 1, 2, 2),
+                     pool_kernels=((2, 2),) * 4, input_size=(64, 96), n_classes=10,
+                     conv_bn=False, dense_bn=False, dropout=0.0,
+                     dense_layers=(DenseLayer(4096), DenseLayer(4096),
+                                   DenseLayer(128, relu=False)))

@@ -2,7 +2,11 @@
 drsa_audio_tpu.ops.frontend).
 
 Pipeline: slice -> peak normalise -> |STFT| (matmul DFT by default) -> mel
--> log10(x + 1e-7) -> clamp at -4 -> crop time bins [1 : width + 1].
+-> log10(x + 1e-7) -> clamp at -4 -> crop time bins [1 : width + 1]: the
+GTZAN and toy cases. A case of ``FRONTEND_PARAMS`` may state each step
+otherwise (VGGish: no peak normalisation, 400-sample windows in a 512-point
+DFT, uncentred frames, mel-linear bands from 125 to 7,500 Hz,
+ln(mel + 0.01), frames [0 : 96]); ``FrontendConfig`` carries the keys.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 
 from drsa_audio_tpu_torch.ops.mel import mel_scale
 from drsa_audio_tpu_torch.ops.stft import stft, stft_mag_matmul, stft_magnitude
-from drsa_audio_tpu_torch.utils.constants import AUDIO_PARAMS
+from drsa_audio_tpu_torch.utils.constants import FRONTEND_PARAMS
 
 
 def round_down(value: float, decimals: int = 1) -> float:
@@ -89,35 +93,72 @@ def minmax_normalize(mel: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:
 
 
 class FrontendConfig(NamedTuple):
-    """Static DSP parameters for one case (AUDIO_PARAMS)."""
+    """Static DSP parameters for one case (FRONTEND_PARAMS). The keys after
+    ``num_chunks`` are the front-end's steps, each at the GTZAN path's
+    default where the case leaves it out (``for_case`` fills the defaults
+    that depend on the others): ``win_length`` samples a frame (n_fft),
+    ``center`` (reflect padding), the mel bands' edges ``f_min`` (0) and
+    ``f_max`` (sample_rate / 2) and ``triangles`` ("hz"), ``log``
+    ("log10_clamp": log10(mel + 1e-7) clamped at -4; "ln_offset":
+    ln(mel + ``log_offset``)), ``first_frame`` (1: frames first_frame ..
+    first_frame + width - 1 kept), ``peak_normalize`` (true) and
+    ``clip_samples`` (slice_length * sample_rate)."""
     sample_rate: int
     n_fft: int
     hop_length: int
     n_mels: int
     width: int
-    slice_length: int
+    slice_length: float
     num_chunks: int
+    win_length: int | None = None
+    center: bool = True
+    f_min: float = 0.0
+    f_max: float | None = None
+    triangles: str = "hz"
+    log: str = "log10_clamp"
+    log_offset: float | None = None
+    first_frame: int = 1
+    peak_normalize: bool = True
+    clip_samples: int | None = None
 
     @classmethod
     def for_case(cls, case: str) -> "FrontendConfig":
-        p = AUDIO_PARAMS[case]
-        return cls(sample_rate=p["sample_rate"], n_fft=p["n_fft"],
+        p = FRONTEND_PARAMS[case]
+        sr = p["sample_rate"]
+        return cls(sample_rate=sr, n_fft=p["n_fft"],
                    hop_length=p["hop_length"], n_mels=p["n_mels"],
                    width=p["mel_width"], slice_length=p["slice_length"],
-                   num_chunks=p["num_chunks"])
+                   num_chunks=p["num_chunks"], win_length=p.get("win_length", p["n_fft"]),
+                   center=p.get("center", True), f_min=p.get("f_min", 0.0),
+                   f_max=p.get("f_max", sr / 2.0), triangles=p.get("triangles", "hz"),
+                   log=p.get("log", "log10_clamp"), log_offset=p.get("log_offset"),
+                   first_frame=p.get("first_frame", 1),
+                   peak_normalize=p.get("peak_normalize", True),
+                   clip_samples=p.get("clip_samples",
+                                      int(round(p["slice_length"] * sr))))
 
 
 def logmel(wav: torch.Tensor, config: FrontendConfig,
            use_matmul_dft: bool = True) -> torch.Tensor:
     """[..., time] waveform -> [..., n_mels, width] log-mel spectrogram. The
-    matmul DFT is the default; ``use_matmul_dft=False`` takes the FFT."""
+    matmul DFT is the default; ``use_matmul_dft=False`` takes the FFT (the
+    default framing only)."""
     if use_matmul_dft:
-        mag = stft_mag_matmul(wav, config.n_fft, config.hop_length)
-    else:
+        mag = stft_mag_matmul(wav, config.n_fft, config.hop_length, config.win_length,
+                              config.center)
+    elif config.win_length in (None, config.n_fft) and config.center:
         mag = stft_magnitude(wav, config.n_fft, config.hop_length)
-    mel = mel_scale(mag, config.n_mels, config.sample_rate)
-    out = torch.clamp(torch.log10(mel + 1e-7), min=-4.0)
-    return out[..., 1:config.width + 1]
+    else:
+        raise ValueError("logmel: the FFT path takes only centred frames of n_fft samples")
+    mel = mel_scale(mag, config.n_mels, config.sample_rate, config.f_min, config.f_max,
+                    config.triangles)
+    if config.log == "log10_clamp":
+        out = torch.clamp(torch.log10(mel + 1e-7), min=-4.0)
+    elif config.log == "ln_offset":
+        out = torch.log(mel + config.log_offset)
+    else:
+        raise ValueError(f"logmel: log {config.log!r} is not 'log10_clamp' or 'ln_offset'")
+    return out[..., config.first_frame:config.first_frame + config.width]
 
 
 def logmel_full(wav: torch.Tensor, config: FrontendConfig):
@@ -143,5 +184,5 @@ def load_clip_to_mels(wav: torch.Tensor, config: FrontendConfig, startpoint: flo
             sl = get_slice_at(wav, config.slice_length, startpoint, config.sample_rate)[None]
     else:
         sl = wav[None]
-    mels = logmel(peak_normalize(sl), config)
+    mels = logmel(peak_normalize(sl) if config.peak_normalize else sl, config)
     return mels.reshape(-1, 1, config.n_mels, config.width)

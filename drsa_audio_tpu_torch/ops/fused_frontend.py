@@ -136,7 +136,15 @@ def fused_logmel(wav: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     windowed frame's real FFT as a complex four-step FFT of half its length
     with the real-FFT post-twiddle (small dense DFTs from host tables,
     float64 cast to f32), and sums each mel over its band of bins only
-    (mel_bands); frames outside the crop are never computed."""
+    (mel_bands); frames outside the crop are never computed. Both take the
+    GTZAN framing only (FrontendConfig's defaults) and raise ValueError for
+    a case that states its own (VGGish's)."""
+    defaults = FrontendConfig(*config[:7])._replace(
+        win_length=config.n_fft, f_max=config.sample_rate / 2.0,
+        clip_samples=config.clip_samples)
+    if config != defaults:
+        raise ValueError("fused_logmel: the GTZAN framing only (centred n_fft frames, the "
+                         "Hz-linear bank, log10 clamped, frames 1 .. width)")
     if wav.device.type == "cpu":
         return fused_logmel_plain(wav, config)
     lead, L = wav.shape[:-1], wav.shape[-1]

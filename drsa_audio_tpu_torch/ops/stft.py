@@ -5,6 +5,9 @@ window of length n_fft, center=True with reflect padding, one-sided, no
 normalisation. ``stft`` is the FFT path (torch.fft.rfft); the magnitude is
 also two plain matmuls against a DFT basis built in float64 and cast
 (``stft_mag_matmul``), which agrees with the FFT path to float32 round-off.
+``stft_mag_matmul`` also takes a window shorter than the DFT (``win_length``
+samples a frame, zero-padded at its end to n_fft, as VGGish frames 400
+samples into a 512-point FFT) and uncentred framing.
 ``istft`` inverts a centred spectrum by overlap-add.
 """
 
@@ -25,14 +28,19 @@ def hann_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 
-def _frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """Reflect-pad by n_fft//2 on both sides and cut overlapping frames.
-    [..., time] -> [..., n_frames, n_fft]."""
-    pad = n_fft // 2
+def _frame_signal(x: torch.Tensor, n_fft: int, hop_length: int,
+                  center: bool = True) -> torch.Tensor:
+    """Reflect-pad by n_fft//2 on both sides (``center``) and cut
+    overlapping frames of n_fft samples. [..., time] -> [..., n_frames,
+    n_fft]."""
     lead = x.shape[:-1]
-    xp = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad),
-                                 mode="reflect")
-    frames = xp[:, 0].unfold(-1, n_fft, hop_length)
+    if center:
+        pad = n_fft // 2
+        xp = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad),
+                                     mode="reflect")[:, 0]
+    else:
+        xp = x.reshape(-1, x.shape[-1])
+    frames = xp.unfold(-1, n_fft, hop_length)
     return frames.reshape(*lead, frames.shape[-2], n_fft)
 
 
@@ -59,19 +67,29 @@ def dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_basis(n_fft: int, dtype: torch.dtype, device: torch.device):
+def _device_basis(n_fft: int, dtype: torch.dtype, device: torch.device,
+                  win_length: int | None = None):
     """(window, cos basis, sin basis) on ``device``, built once: they are
-    constants of the config. Built outside inference mode so that later
+    constants of the config. The window is a periodic Hann of
+    ``win_length`` (default n_fft) samples, and the bases are the n_fft-point
+    DFT's first ``win_length`` rows: a frame zero-padded to n_fft meets the
+    other rows with its zeros. Built outside inference mode so that later
     callers in any mode may use them."""
+    win = n_fft if win_length is None else win_length
     with torch.inference_mode(False):
-        cos_b, sin_b = (torch.as_tensor(m, device=device) for m in dft_basis(n_fft))
-        return hann_window(n_fft, dtype, device), cos_b, sin_b
+        cos_b, sin_b = (torch.as_tensor(m[:win], device=device) for m in dft_basis(n_fft))
+        return hann_window(win, dtype, device), cos_b, sin_b
 
 
-def stft_mag_matmul(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """|STFT| as two matmuls: [..., time] -> [..., n_freq, n_frames]."""
-    frames = _frame_signal(x, n_fft, hop_length)
-    window, cos_b, sin_b = _device_basis(n_fft, frames.dtype, frames.device)
+def stft_mag_matmul(x: torch.Tensor, n_fft: int, hop_length: int,
+                    win_length: int | None = None, center: bool = True) -> torch.Tensor:
+    """|STFT| as two matmuls: [..., time] -> [..., n_freq, n_frames]. Frames
+    of ``win_length`` samples (default n_fft), centred by reflect padding
+    where ``center``, each windowed and zero-padded to n_fft."""
+    win = n_fft if win_length is None else win_length
+    frames = _frame_signal(x, win, hop_length, center)
+    window, cos_b, sin_b = _device_basis(n_fft, frames.dtype, frames.device,
+                                         None if win == n_fft else win)
     frames = frames * window
     re = frames @ cos_b
     im = frames @ sin_b

@@ -190,7 +190,7 @@ class ExplainerService:
 
             def run(x):
                 with profiling.span("frontend", device=True):
-                    mels = logmel(peak_normalize(x), cfg)[:, None]
+                    mels = logmel(peak_normalize(x) if cfg.peak_normalize else x, cfg)[:, None]
                 heat, logits = subspace_heatmaps(
                     specs_proj, self.params, mels, self.composite,
                     self.num_concepts, output_mask=lambda lg: lg * onehot[None, :],
@@ -278,11 +278,12 @@ class ExplainerService:
         batches are prepared ahead on a background thread. Inputs are
         checked, not trusted: a file at another sample rate is resampled
         to the service's, and one shorter than the analysis window
-        (``window_s``, default the case's slice length) is padded, skipped
+        (``window_s``, default the case's clip, ``clip_samples``) is padded, skipped
         or refused by ``on_short``."""
         if on_short not in ("pad", "skip", "error"):
             raise ValueError(f"on_short must be pad|skip|error, got {on_short!r}")
-        window = int((window_s or self.config.slice_length) * self.config.sample_rate)
+        window = (int(window_s * self.config.sample_rate) if window_s
+                  else self.config.clip_samples)
         args = (window, self.config.sample_rate, on_short)
         class_idx = self.mapper[class_name]
 

@@ -53,6 +53,35 @@ AUDIO_PARAMS = {
     },
 }
 
+# The port's front-end table: AUDIO_PARAMS' cases, whose front-end steps
+# take ops.frontend.FrontendConfig's defaults, and VGGish's (vggish_params.py,
+# mel_features.py): 0.96 s examples of 15,600 samples, a 400-sample periodic
+# Hann window in a 512-point FFT at a hop of 160, no centring, 64 HTK bands
+# linear on the mel scale from 125 to 7,500 Hz (the DC bin dropped),
+# ln(mel + 0.01), 96 frames from the first, no peak normalisation.
+FRONTEND_PARAMS = {
+    **AUDIO_PARAMS,
+    "vggish": {
+        "sample_rate": 16000,
+        "slice_length": 0.96,
+        "clip_samples": 15600,
+        "num_chunks": 1,
+        "n_fft": 512,
+        "win_length": 400,
+        "hop_length": 160,
+        "n_mels": 64,
+        "mel_width": 96,
+        "f_min": 125.0,
+        "f_max": 7500.0,
+        "triangles": "mel",
+        "log": "ln_offset",
+        "log_offset": 0.01,
+        "center": False,
+        "first_frame": 0,
+        "peak_normalize": False,
+    },
+}
+
 LRP_NAME_MAP_GTZAN = [
     ("features.0", ("wsquare", {"stabilizer": 1e-7})),
     ("features.3", ("gamma", {"gamma": 0.4, "stabilizer": 1e-7})),

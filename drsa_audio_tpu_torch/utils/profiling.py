@@ -16,7 +16,9 @@ active records nothing. Per request, ``count_copy`` adds the bytes moved
 host to device (``h2d_bytes``) and device to host (``d2h_bytes``), tagged
 ``pinned`` or ``pageable`` by the host tensor, and ``count`` adds to any
 other counter (``sort.device_clips``: the clips the service sorted on the
-device). On a CUDA device a span opened with ``device=True`` also records a
+device; ``chain.wide_launches``: the kernel launches of the chain_block
+calls with a conv over 128 channels, each such call the device span
+``chain.wide``). On a CUDA device a span opened with ``device=True`` also records a
 pair of timing events; they are resolved to ms when the request closes,
 after ``wait_device`` has waited for its device work, so no event outlives
 its request. While a ``torch.profiler`` is active

@@ -21,10 +21,19 @@ calls that launched a kernel.
 
 Layout is plain NHWC: the TPU kernels' column packing [H, W/P, P*C] existed
 only to fill 128-wide vector lanes and is not part of the math.
+
+``plan_chain`` admits a conv section only where each conv passes its
+kernel's predicate (``chain_takes``, ``first_layer_takes``,
+``first_block_deep_takes``, the .cu files' refusals written in Python), so
+a model the kernels would refuse takes the plain tiled walk instead. A
+``chain_block`` call with a conv over 128 channels (VGGish's 256 and 512)
+is the request log's device span ``chain.wide``, and its kernel launches
+the counter ``chain.wide_launches``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -123,6 +132,14 @@ def wg_cols(n: int) -> int:
     return -(-n // 64) * 64
 
 
+def apply_chunk(ci: int, co: int) -> int:
+    """chain_gamma_apply's column width for a conv of Ci -> Co channels:
+    one tile of ``wg_cols(Ci)`` up to 128 channels in and out; for a conv
+    over 128 channels, chunks of 128 columns, one a grid column of the
+    launch (csrc/chain_block.cu)."""
+    return wg_cols(ci) if max(ci, co) <= 128 else 128
+
+
 def prep_chunk(n: int) -> int:
     """chain_gamma_prep's column chunk for N = 2*Co columns: the tile width,
     at most 32, so that the prep's FRESH scratch fragments fit beside its
@@ -155,9 +172,10 @@ class GammaConv:
     b + g*b-). The kernels' tap layouts: ``w_prep_wg`` the forward pair
     interleaved (column 2j wz1's output channel j, 2j + 1 wz3's), pre-split
     by ``wgmma_taps`` in column chunks of ``prep_chunk(2*Co)``
-    (chain_gamma_prep); ``w_apply_wg`` the transposed wz1, pre-split in one
-    chunk of ``wg_cols(Ci)`` (chain_gamma_apply, first_block_deep,
-    merged_tail)."""
+    (chain_gamma_prep); ``w_apply_wg`` the transposed wz1, pre-split in
+    column chunks of ``apply_chunk(Ci, Co)``: one chunk up to 128 channels
+    (chain_gamma_apply, first_block_deep, merged_tail), chunks of 128 for a
+    conv over 128 channels (chain_gamma_apply)."""
     wz1: torch.Tensor
     wz3: torch.Tensor
     biases: torch.Tensor
@@ -173,7 +191,7 @@ class GammaConv:
 
     @property
     def apply_cols(self) -> int:
-        """The column width ``w_apply_wg`` is laid out in."""
+        """The column chunk ``w_apply_wg`` is laid out in."""
         return self.w_apply_wg.shape[-2]
 
     @property
@@ -202,7 +220,7 @@ def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
         inv=float(np.float32(1.0 / (2.0 + g))),
         stab=float(kwargs.get("stabilizer", 1e-6)),
         w_prep_wg=wgmma_taps(pair, prep_chunk(2 * co)),
-        w_apply_wg=wgmma_taps(w_apply, wg_cols(ci)))
+        w_apply_wg=wgmma_taps(w_apply, apply_chunk(ci, co)))
 
 
 @dataclasses.dataclass
@@ -231,6 +249,37 @@ def prep_first_weights(params: dict, spec, rule, fine_hw) -> FirstLayer:
     taps = wm[:, 0].flip(1, 2).permute(1, 2, 0).reshape(9, -1).contiguous()
     return FirstLayer(wm=wm, z0=z0, taps=taps,
                       stab0=float(kwargs.get("stabilizer", 1e-6)))
+
+
+# ------------------------------------------------------- the kernels' predicates
+#
+# Each mirrors the refusals of its kernel (or, where stricter, its wrapper),
+# so that plan_chain admits only a conv section the kernels run.
+
+def chain_takes(c: int) -> bool:
+    """A channel count chain_gamma_prep and chain_gamma_apply take
+    (csrc/chain_block.cu ``takes``): a multiple of 8 or of 20 up to 128, or
+    a multiple of 64 from 192 to 512."""
+    return (0 < c <= 128 and (c % 8 == 0 or c % 20 == 0)) or (192 <= c <= 512 and c % 64 == 0)
+
+
+def first_layer_takes(C: int, hw: tuple | None = None) -> bool:
+    """The first conv's output channels C, and its level's (H, W) where
+    given, as ``first_layer`` takes them: C % 8 == 0, H % 8 == 0 and W even
+    and at most 512 (the wrapper's; csrc/first_layer.cu itself takes W up
+    to 1024 and even H)."""
+    if C <= 0 or C % 8:
+        return False
+    return hw is None or (hw[0] > 0 and hw[0] % 8 == 0 and 0 < hw[1] <= 512 and hw[1] % 2 == 0)
+
+
+def first_block_deep_takes(C0: int, C: int) -> bool:
+    """The deep first block's channels, C0 out of its first conv and C out
+    of its gamma conv (csrc/first_block_deep.cu): C0 % 8 == 0, C0 <= 64,
+    C % 4 == 0, C <= 128, and both counts the prep (chain_gamma_prep,
+    Ci = C0, Co = C) takes."""
+    return (0 < C0 <= 64 and C0 % 8 == 0 and 0 < C <= 128 and C % 4 == 0
+            and chain_takes(C0) and chain_takes(C))
 
 
 # ------------------------------------------------------------ chain_block
@@ -324,7 +373,11 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
     interleaved columns, the transposed conv over R * G formed and split
     once per staged 8-channel slice, A from registers, the taps pre-split
     on the host (``w_prep_wg``, ``w_apply_wg``) and staged by bulk copy
-    (asynchronous, double-buffered)."""
+    (asynchronous, double-buffered). Past 128 channels (VGGish's 256 and
+    512) the apply runs a grid column per chunk of 128 input channels and
+    adds its 8-channel slices' sums in f32, and 8-row levels take 8 x 16
+    tiles; such a call is the request log's device span ``chain.wide`` and
+    adds its launches to ``chain.wide_launches``."""
     if R.device.type == "cpu":
         return chain_block_plain(R, xs, convs, apre, pool)
     b, K = R.shape[:2]
@@ -333,15 +386,19 @@ def chain_block(R: torch.Tensor, xs: Sequence[torch.Tensor],
     if (pool is not None and pool[0] != 2) or b > 65535:
         raise ValueError("chain_block: pools must be (2, kw); batch at most 65535")
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
-    for j, (x, cv) in enumerate(zip(xs, convs)):
-        _, H, W, _ = x.shape
-        if tuple(R.shape) != (b, K, H, W, cv.co) or x.shape[-1] != cv.ci:
-            raise ValueError("chain_block: relevance / activation shapes disagree")
-        last_pool = apre is not None and j == len(convs) - 1
-        if last_pool and tuple(apre.shape) != (b, H * pool[0], W * pool[1], cv.ci):
-            raise ValueError("chain_block: pool input shape disagrees")
-        G = _gamma_prep(x, cv, stream)
-        R = _gamma_apply(R, G, x, cv, stream, apre if last_pool else None, pool)
+    wide = any(max(cv.ci, cv.co) > 128 for cv in convs)
+    with profiling.span("chain.wide", device=True) if wide else contextlib.nullcontext():
+        for j, (x, cv) in enumerate(zip(xs, convs)):
+            _, H, W, _ = x.shape
+            if tuple(R.shape) != (b, K, H, W, cv.co) or x.shape[-1] != cv.ci:
+                raise ValueError("chain_block: relevance / activation shapes disagree")
+            last_pool = apre is not None and j == len(convs) - 1
+            if last_pool and tuple(apre.shape) != (b, H * pool[0], W * pool[1], cv.ci):
+                raise ValueError("chain_block: pool input shape disagrees")
+            G = _gamma_prep(x, cv, stream)
+            R = _gamma_apply(R, G, x, cv, stream, apre if last_pool else None, pool)
+    if wide:
+        profiling.count("chain.wide_launches", 2 * len(convs))
     LAUNCHES["chain_block"] += 1
     return R
 
@@ -350,7 +407,8 @@ def _gamma_apply(R: torch.Tensor, G: torch.Tensor, x: torch.Tensor, cv: GammaCon
                  apre: torch.Tensor | None = None, pool: tuple | None = None) -> torch.Tensor:
     """One chain_gamma_apply launch: x * convT(R * G) for every clone, routed
     through the ``pool`` backward to [b, K, H*kh, W*kw, Ci] when ``apre`` is
-    given, else [b, K, H, W, Ci]."""
+    given, else [b, K, H, W, Ci]; past 128 input channels, one grid column
+    a chunk of ``cv.apply_cols`` of them."""
     b, K, H, W, _ = R.shape
     kh, kw = pool if apre is not None else (1, 1)
     out = torch.empty((b, K, H * kh, W * kw, cv.ci), device=R.device)
@@ -403,7 +461,7 @@ def first_layer(R: torch.Tensor, a1: torch.Tensor, fl: FirstLayer) -> torch.Tens
     b, K, Hc, Wc, C = R.shape
     H, W = a1.shape[1:3]
     if (tuple(a1.shape) != (b, 2 * Hc, 2 * Wc, C) or tuple(fl.z0.shape) != (H, W, C)
-            or H % 8 or C % 8 or W > 512 or b > 65535):
+            or not first_layer_takes(C, (H, W)) or b > 65535):
         raise ValueError("first_layer: unsupported shapes")
     heat = torch.empty((b, K, H, W), device=R.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(R.device).cuda_stream)
@@ -622,11 +680,13 @@ def plan_chain(conv_section: Sequence, params: dict, composite,
 
     Topology, bottom-up: conv(wsquare/flat, Cin=1) relu [conv(gamma) relu]
     maxpool(2,2|2,4), then [conv(gamma) relu]+ maxpool(2,2) blocks, then a
-    [conv(gamma) relu]+ head. 3x3 convs with bias, at most 128 channels;
-    block 0 holds at most one gamma conv above the first conv; a (2,4)
-    pool only above block 0. ``fine_hw`` also checks that every pool
-    divides its level. The TPU plan's lane-packing conditions do not
-    apply."""
+    [conv(gamma) relu]+ head. 3x3 convs with bias; block 0 holds at most
+    one gamma conv above the first conv; a (2,4) pool only above block 0.
+    Each conv's channels pass its kernel's predicate: ``chain_takes`` in
+    the blocks above the first (up to 512 channels), ``first_layer_takes``
+    or ``first_block_deep_takes`` in the first. ``fine_hw`` also checks
+    that every pool divides its level, and the first layer's level. The
+    TPU plan's lane-packing conditions do not apply."""
     specs = list(conv_section)
     if len(specs) < 2 or specs[0].kind != "conv" or specs[-1].kind != "relu":
         return None
@@ -663,7 +723,7 @@ def plan_chain(conv_section: Sequence, params: dict, composite,
                 return None
     if len(blocks[0]["convs"]) > 2:
         return None
-    for blk in blocks:
+    for bi, blk in enumerate(blocks):
         blk["rules"] = {}
         for ci in blk["convs"]:
             if ci == 0:
@@ -672,9 +732,17 @@ def plan_chain(conv_section: Sequence, params: dict, composite,
             if rule is None or rule[0] not in ("gamma", "gamma_nonneg"):
                 return None
             p = params[specs[ci].name]
-            if p.get("bias") is None or max(p["weight"].shape[:2]) > 128:
+            if p.get("bias") is None:
+                return None
+            co_, ci_ = p["weight"].shape[:2]
+            if bi > 0 and not (chain_takes(ci_) and chain_takes(co_)):
                 return None
             blk["rules"][ci] = rule[1]
+    first = [params[specs[ci].name]["weight"].shape[0] for ci in blocks[0]["convs"]]
+    if len(first) == 2 and not first_block_deep_takes(*first):
+        return None
+    if len(first) == 1 and not first_layer_takes(first[0], fine_hw):
+        return None
     for bi in range(len(blocks) - 1):
         if blocks[bi]["pool_above"][2] == 4 and bi != 0:
             return None

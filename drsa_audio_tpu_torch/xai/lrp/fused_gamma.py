@@ -34,8 +34,13 @@ def reset_launches() -> None:
 def takes(layer) -> bool:
     """Whether shared_gamma_nonneg sends this layer (an engine.LayerOp) to
     the kernel on a GPU: an NCHW conv with 3x3 taps (every conv of the
-    models is stride 1, SAME)."""
-    return layer.kind == "conv" and not layer.nhwc and tuple(layer.w.shape[2:]) == (3, 3)
+    models is stride 1, SAME) whose channels the kernel takes
+    (csrc/gamma_nonneg.cu ``takes``: Co a multiple of 8 or of 20 up to 128,
+    Ci a multiple of 4 up to 128). Others take the plain rule."""
+    if layer.kind != "conv" or layer.nhwc or tuple(layer.w.shape[2:]) != (3, 3):
+        return False
+    co, ci = layer.w.shape[:2]
+    return 0 < co <= 128 and (co % 8 == 0 or co % 20 == 0) and 0 < ci <= 128 and ci % 4 == 0
 
 
 def gamma_nonneg_folded_plain(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,

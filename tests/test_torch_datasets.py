@@ -160,7 +160,11 @@ def test_config_json_crosses_packages(tmp_path):
             tcfg.ExperimentConfig.load(str(tmp_path / "t.json")))
         assert dataclasses.asdict(from_j) == dataclasses.asdict(
             jcfg.ExperimentConfig.load(str(tmp_path / "j.json")))
-        assert dataclasses.asdict(from_j.vgg_config()) == dataclasses.asdict(from_t.vgg_config())
+        # the port's VGGConfig also takes a depth per block and the dense
+        # layers one by one; None keeps the JAX package's uniform fields
+        port_vgg = dataclasses.asdict(from_j.vgg_config())
+        assert port_vgg.pop("block_depths") is None and port_vgg.pop("dense_layers") is None
+        assert port_vgg == dataclasses.asdict(from_t.vgg_config())
         assert from_j.lrp_name_map == from_t.lrp_name_map
         assert isinstance(from_j.vgg_config(), tvgg.VGGConfig)
 

@@ -93,6 +93,102 @@ def test_chain_block_kernel_matches_plain(cuda, chans, H, W, pool, b, K):
     _close(got, chain.chain_block_plain(R, xs, convs, apre, pool))
 
 
+def _exact_conv(rng, ci, co, dev):
+    """A gamma conv (gamma 0.25) whose forward sums are exact in float32 and
+    in 3xTF32 on inputs of small integers: weights in quarters up to 1,
+    biases odd multiples of 1/64 (z1 + b2 never 0). Kernel and plain then
+    take every sign decision of the prep alike."""
+    spec = vgg.LayerSpec("conv", f"e{ci}_{co}_{rng.integers(1 << 30)}", {})
+    w = torch.as_tensor((rng.integers(-4, 5, (co, ci, 3, 3)) * 0.25).astype(np.float32),
+                        device=dev)
+    b = torch.as_tensor(((rng.integers(-8, 8, co) + 0.5) / 32).astype(np.float32), device=dev)
+    return chain.prep_inner_weights({spec.name: {"weight": w, "bias": b}}, spec,
+                                    {"gamma": 0.25, "stabilizer": 1e-7})
+
+
+@pytest.mark.parametrize("data", ["gaussian", "exact"])
+@pytest.mark.parametrize("chans,H,W,pool", [
+    # VGGish's convs past 128 channels, one at a time, on its two levels: 16
+    # x 24 with the (2, 2) pool below, 8 x 12 (the 8 x 16 tile) with none
+    *[([c], 16, 24, (2, 2)) for c in [(128, 256), (256, 256), (256, 512), (512, 512)]],
+    *[([c], 8, 12, None) for c in [(128, 256), (256, 256), (256, 512), (512, 512)]],
+    # its two wide blocks as the request walks them, and a 192-channel count
+    ([(256, 512), (512, 512)], 8, 12, (2, 2)),
+    ([(128, 256), (256, 256)], 16, 24, (2, 2)),
+    ([(192, 320)], 8, 12, (2, 2)),
+])
+def test_chain_block_kernel_matches_plain_past_128_channels(cuda, chans, H, W, pool, data):
+    """Ci past 128 in chunks of 128 columns (a grid column each), the
+    reduction over up to 64 slices, each summed apart (PER_SLICE), the
+    prep's up to 32 column chunks; K=4, two instances. Gaussian data (_conv,
+    gamma 0.4, as up to 128 channels) at _close's tolerance outside the
+    block's sign mask (chip_smoke.sign_mask: the outputs that hang on a
+    gate or denominator sign within SIGN_DELTA of its terms' magnitudes,
+    where the kernel and cuDNN may each split from the float64 sum; at most
+    half the output); exact data (_exact_conv, activations integers 0-3)
+    everywhere. Both everywhere against the plain version in float64 with
+    the kernel's own G at those signs (chip_smoke.aligned_reference, which
+    holds each conv's G against the float64 G elsewhere). A call with a
+    conv over 128 channels is one chain.wide span and counts its two
+    launches a conv."""
+    from chip_smoke import aligned_reference, chain_block_close
+    from drsa_audio_tpu_torch.utils import profiling
+    rng = np.random.default_rng(1)
+    b, K = 2, 4
+    if data == "gaussian":
+        convs = [_conv(rng, ci, co, cuda) for ci, co in chans][::-1]     # top-down
+        xs = [torch.as_tensor(np.maximum(rng.standard_normal((b, H, W, cv.ci)), 0)
+                              .astype(np.float32), device=cuda) for cv in convs]
+    else:
+        convs = [_exact_conv(rng, ci, co, cuda) for ci, co in chans][::-1]
+        xs = [torch.as_tensor(rng.integers(0, 4, (b, H, W, cv.ci)).astype(np.float32),
+                              device=cuda) for cv in convs]
+    R = torch.as_tensor(rng.standard_normal((b, K, H, W, convs[0].co)).astype(np.float32),
+                        device=cuda)
+    apre = None
+    if pool:
+        apre = rng.standard_normal((b, H * pool[0], W * pool[1], convs[-1].ci)).astype(np.float32)
+        apre[0, :2, :pool[1]] = -1.0      # an all-tied (zero after relu) window
+        apre = torch.as_tensor(apre, device=cuda)
+    with profiling.request(cuda):
+        got = chain.chain_block(R, xs, convs, apre, pool)
+        profiling.mark_done()
+        profiling.wait_device()
+    req = profiling.requests()[-1]
+    assert req.counters["chain.wide_launches"] == 2 * len(convs)
+    assert sum(s.name == "chain.wide" for s in req.spans) == 1
+    assert req.device_ms("chain.wide") > 0
+    want = chain.chain_block_plain(R, xs, convs, apre, pool)
+    torch.cuda.synchronize()
+    if data == "gaussian":
+        chain_block_close("chain_block", got, want, xs, convs, pool)
+    else:
+        _close(got, want)
+    _close(got, aligned_reference("chain_block", R, xs, convs, apre, pool)[0].float())
+
+
+@pytest.mark.parametrize("ci,co,H", [(64, 64, 16), (32, 64, 32), (32, 32, 64), (128, 128, 8),
+                                     (100, 128, 16), (64, 100, 32), (8, 16, 8), (16, 16, 8)])
+def test_launches_up_to_128_channels_keep_their_widths_and_tiles(cuda, ci, co, H):
+    """Up to 128 channels the wrapper's widths (BN) and the kernels' shared
+    memory a block (which fixes MT and TH, and with them the grid) are
+    those of the 16 x 8 and 32 x 8 tiles: the apply's one chunk of
+    wg_cols(Ci), the prep's chunks of 16 or 32, MT = 2 on 32 rows or more
+    up to 32 columns, else 1."""
+    cv = _conv(np.random.default_rng(2), ci, co, cuda)
+    assert cv.apply_cols == chain.wg_cols(ci) and cv.w_apply_wg.shape[0] == 1
+    assert cv.prep_cols == (16 if co == 8 else 32)
+
+    def smem(bn, mt):           # csrc/chain_block.cu: 4 * (BARS + 2 * STAGE)
+        region = (16 * mt + 2) * 10 * 12
+        return 4 * (4 + 2 * (2 * 9 * 8 * bn + 2 * region))
+
+    prep_mt = 2 if H >= 32 else 1
+    apply_mt = 2 if H >= 32 and cv.apply_cols <= 32 else 1
+    assert chain.gamma_smem(cv, H) == (smem(cv.prep_cols, prep_mt),
+                                       smem(cv.apply_cols, apply_mt))
+
+
 @pytest.mark.parametrize("ci,co", [(12, 16), (16, 12), (136, 136)])
 def test_chain_block_kernel_refuses_unsupported_counts(cuda, ci, co):
     rng = np.random.default_rng(0)
@@ -292,6 +388,58 @@ def test_tensor_core_instructions_in_sass(cuda, name, want, other):
     assert ops.count(want) > 0
     if other is not None:
         assert ops.count(other) == 0
+
+
+def test_service_on_card_at_counts_the_kernels_refuse(cuda):
+    """A 3s model at filters (12, 12, 24, 24, 24): plan_chain refuses the
+    section (chain_takes(12) is False), so the service explains it on the
+    card by the plain tiled walk, as fused=False does, launching no chain
+    kernel; the shared-denominator walk takes the plain rule at the
+    12-channel convs (fused_gamma.takes) and the kernel at the others."""
+    import dataclasses
+
+    from drsa_audio_tpu_torch.serving import ExplainerService
+    from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
+    from drsa_audio_tpu_torch.xai import explain
+    cfg = dataclasses.replace(vgg.gtzan_3s_config(), n_filters=(12, 12, 24, 24, 24))
+    specs = vgg.build_layer_specs(cfg)
+    params = vgg.init_params(specs, 3, device=cuda)
+    # a signed permutation: a generic U splits the concepts by round-off
+    # (ROADMAP Queue 3 item 3), so two walks' concept maps need not agree
+    rng = np.random.default_rng(4)
+    U = (np.eye(24)[rng.permutation(24)] * rng.choice([-1.0, 1.0], 24)).astype(np.float32)
+    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN, {"jazz": U}, 4, 10, device=cuda)
+    wavs = (np.random.default_rng(5).standard_normal((2, 48000)) * 0.3).astype(np.float32)
+    chain.reset_launches()
+    got = svc.explain(wavs, "jazz")
+    assert sum(chain.LAUNCHES.values()) == 0
+    want = svc.explain(wavs, "jazz", fused=False)
+    for key in ("standard_heatmaps", "subspace_heatmaps", "logits"):
+        _close(torch.as_tensor(got[key]), torch.as_tensor(want[key]))
+    from drsa_audio_tpu_torch.models.projection import insert_projection
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    sp = insert_projection(specs, 10, torch.as_tensor(U, device=cuda), 4, input_size=(128, 128))
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((2, 1, 128, 128))
+                        .astype(np.float32), device=cuda)
+    comp = explain.class_composite(LRP_NAME_MAP_GTZAN, 4)
+    n0 = fused_gamma.LAUNCHES["gamma_nonneg"]
+    shared, _ = explain.subspace_heatmaps(sp, params, x, comp, 4, class_idx=9,
+                                          shared_denominators=True, nhwc=False)
+    assert fused_gamma.LAUNCHES["gamma_nonneg"] > n0
+    plain, _ = explain.subspace_heatmaps(sp, params, x, comp, 4, class_idx=9, fused=False)
+    _close(shared, plain)
+
+
+def test_wide_chain_instances_in_sass(cuda):
+    """chain_block's wide-route instances (chip_smoke.WIDE_INSTANCES: the
+    8 x 16 prep and the 128-column per-slice applies) are each in the
+    library and multiply on wgmma (HGMMA) with no mma.sync (HMMA), function
+    by function."""
+    from chip_smoke import WIDE_INSTANCES, wide_sass_counts
+    from drsa_audio_tpu_torch.utils import nvcc
+    counts = wide_sass_counts(nvcc.build(["chain_block"])["chain_block"])
+    assert set(counts) == set(WIDE_INSTANCES)
+    assert all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values())
 
 
 @pytest.mark.parametrize("margin", [1e-5, 1e-6])
