@@ -216,7 +216,11 @@ class ExplainerService:
     def explain(self, wavs: np.ndarray, class_name: str,
                 fused: bool | None = None) -> dict:
         """``fused=False`` runs the lower segment through the plain tiled
-        walk instead of the chain kernels (for comparison)."""
+        walk instead of the chain kernels (for comparison).
+
+        On a CUDA device the returned arrays are views of page-locked host
+        memory (``_finalize``): a caller that keeps many results holds that
+        memory, and can copy the arrays (``np.array(x)``) to let it go."""
         with profiling.request(self.device):
             out = self._dispatch(wavs, class_name, fused)
             with profiling.span("service.finalize"):
@@ -255,10 +259,29 @@ class ExplainerService:
     def _finalize(self, out) -> dict:
         """The wait and the readback of ``_dispatch``'s outputs: ``explain``'s
         result dict, whose maps and relevances are views of the arrays read
-        back."""
+        back, bit for bit.
+
+        From a CUDA device each output is copied into a page-locked block
+        of PyTorch's caching host allocator: every copy is enqueued on the
+        device's current stream, then the host waits once, on an event after
+        the last. A block goes back to the allocator's cache only when the
+        last array viewing it is gone, so a later request reuses it without
+        page faults and never writes under a result still held. A caller
+        that keeps many results holds that page-locked memory, and can copy
+        the arrays (``np.array(x)``) to let it go. On the CPU the arrays are
+        views of the outputs' own storage."""
         profiling.wait_device()
         with profiling.span("service.readback"):
-            host = [t.cpu() for t in out]
+            dev = out[0].device
+            if dev.type == "cuda":
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+                for h, t in zip(host, out):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                done.synchronize()
+            else:
+                host = [t.cpu() for t in out]
             for h, d in zip(host, out):
                 profiling.count_copy("d2h_bytes", h, d)
             heat, logits, rel, order = (t.numpy() for t in host)

@@ -508,31 +508,77 @@ def test_service_on_card_matches_plain_path(cuda):
     _close(got, want)
 
 
-def test_request_log_on_card(cuda):
-    """A request's device spans resolve to ms and drop their events; the
-    counters hold the pageable bytes of the upload, the maps and the logits."""
-    import time
+def _service_3s(classes):
     from drsa_audio_tpu_torch.serving import ExplainerService
-    from drsa_audio_tpu_torch.utils import profiling
     from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
     from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
     specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
     params = vgg.init_params(specs, 0, device="cuda")
-    svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN,
-                           {"pop": random_orthogonal(0, 64)}, 4, 10)
-    wavs = (np.random.default_rng(2).standard_normal((4, 48000)) * 0.3).astype(np.float32)
+    return ExplainerService(specs, params, LRP_NAME_MAP_GTZAN,
+                            {c: random_orthogonal(i, 64) for i, c in enumerate(classes)}, 4, 10)
+
+
+def _wavs_3s(seed, b=4):
+    return (np.random.default_rng(seed).standard_normal((b, 48000)) * 0.3).astype(np.float32)
+
+
+def test_request_log_on_card(cuda):
+    """A request's device spans resolve to ms and drop their events; the
+    counters hold the pageable bytes of the upload and the pinned bytes of
+    the readback: the maps, the logits, the relevances and the order."""
+    import time
+    from drsa_audio_tpu_torch.utils import profiling
+    svc = _service_3s(["pop"])
     t0 = time.perf_counter()
-    svc.explain(wavs, "pop")
+    svc.explain(_wavs_3s(2), "pop")
     (req,) = profiling.requests(t0, time.perf_counter())
     for name in ("frontend", "forward_upper", "lower", "service.device_sort"):
         assert req.device_ms(name) > 0.0
     assert req._events == [] and req._done is None
     # the maps, the logits, the relevances [4, 5] and the order [4, 4] (int64)
     assert req.counters == {"h2d_bytes.pinned": 0, "h2d_bytes.pageable": 4 * 48000 * 4,
-                            "d2h_bytes.pinned": 0,
-                            "d2h_bytes.pageable": (4 * 5 * 128 * 128 * 4 + 4 * 10 * 4
-                                                   + 4 * 5 * 4 + 4 * 4 * 8),
+                            "d2h_bytes.pinned": (4 * 5 * 128 * 128 * 4 + 4 * 10 * 4
+                                                 + 4 * 5 * 4 + 4 * 4 * 8),
+                            "d2h_bytes.pageable": 0,
                             "sort.device_clips": 4}
+
+
+def test_held_result_survives_later_requests_on_card(cuda):
+    """The readback's page-locked blocks go back to the caching host
+    allocator only with the caller's last view: a result kept across two
+    later requests, of other inputs and classes, keeps its values, and
+    every array of it lies in page-locked memory. The second later request
+    reuses the maps block of the first, which was dropped."""
+    svc = _service_3s(["pop", "jazz", "rock"])
+    held = svc.explain(_wavs_3s(2), "pop")
+    want = {k: v.copy() for k, v in held.items()}
+    for key, x in held.items():
+        assert torch.from_numpy(x).is_pinned(), key
+    blocks = []
+    for seed, cls in ((3, "jazz"), (4, "rock")):
+        other = svc.explain(_wavs_3s(seed), cls)
+        assert not np.array_equal(other["subspace_heatmaps"], want["subspace_heatmaps"])
+        blocks.append(other["standard_heatmaps"].ctypes.data)
+        del other
+    assert blocks[0] == blocks[1] != held["standard_heatmaps"].ctypes.data
+    for key, x in held.items():
+        np.testing.assert_array_equal(x, want[key], err_msg=key)
+
+
+def test_finalize_on_card_reads_back_bit_for_bit(cuda):
+    """``_finalize`` on a request's device outputs: the same bytes as
+    ``.cpu()``, under the result dict's keys and views."""
+    svc = _service_3s(["pop"])
+    out = svc._dispatch(_wavs_3s(5), "pop")
+    got = svc._finalize(out)
+    heat, logits, rel, order = (t.cpu().numpy() for t in out)
+    want = {"standard_heatmaps": heat[:, :1], "subspace_heatmaps": heat[:, 1:],
+            "subspace_relevances": rel[:, 1:], "mask": order, "logits": logits,
+            "standard_relevance": rel[:, 0]}
+    assert got.keys() == want.keys()
+    for key, x in want.items():
+        assert got[key].dtype == x.dtype and got[key].shape == x.shape, key
+        assert got[key].tobytes() == x.tobytes(), key
 
 
 @pytest.mark.parametrize("K", [2, 4])

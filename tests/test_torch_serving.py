@@ -100,3 +100,30 @@ def test_service_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ExplainerService(tspecs, tparams, nm, {"class1": signed_permutation(0, d)},
                          4, layer, case=case)
+
+
+def test_finalize_on_cpu_returns_views_of_the_outputs(monkeypatch):
+    """On a CPU service the readback copies nothing: every array of the
+    result dict views the storage of ``_dispatch``'s own outputs, no
+    page-locked memory is asked for, and the request log counts no bytes
+    moved."""
+    from drsa_audio_tpu_torch.utils import profiling
+    _, ts, case = _services("toy", lambda d: {"class1": signed_permutation(1, d)})
+    out = ts._dispatch(_wavs(case, 2, 3), "class1")
+    empty = torch.empty
+
+    def no_pinned(*args, **kwargs):
+        assert not kwargs.get("pin_memory"), "page-locked memory asked for on the CPU"
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_pinned)
+    with profiling.request(ts.device) as req:
+        got = ts._finalize(out)
+    heat, logits, rel, order = out
+    for key, t in (("standard_heatmaps", heat), ("subspace_heatmaps", heat),
+                   ("subspace_relevances", rel), ("standard_relevance", rel),
+                   ("mask", order), ("logits", logits)):
+        assert np.shares_memory(got[key], t.numpy()), key
+    np.testing.assert_array_equal(got["subspace_heatmaps"], heat.numpy()[:, 1:])
+    np.testing.assert_array_equal(got["standard_relevance"], rel.numpy()[:, 0])
+    assert req.counters["d2h_bytes.pinned"] == req.counters["d2h_bytes.pageable"] == 0
