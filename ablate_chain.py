@@ -203,7 +203,7 @@ def main() -> int:
         print("ablate_chain: no CUDA device", file=sys.stderr)
         return 2
     from drsa_audio_tpu_torch.models import vgg
-    from drsa_audio_tpu_torch.xai.lrp import chain
+    from drsa_audio_tpu_torch.xai.lrp import chain, taps
 
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -238,9 +238,9 @@ def main() -> int:
     gconv, w3 = conv(C0, C)
     w0 = t(rng.standard_normal((C0, 1, 3, 3)) * 0.5)
     b0 = t(rng.standard_normal(C0) * 0.1)
-    fl = chain.prep_first_weights({"c0": {"weight": w0, "bias": b0}},
-                                  vgg.LayerSpec("conv", "c0", {}),
-                                  ("wsquare", {"stabilizer": 1e-7}), (H, W))
+    fl = taps.prep_first_weights({"c0": {"weight": w0, "bias": b0}},
+                                 vgg.LayerSpec("conv", "c0", {}),
+                                 ("wsquare", {"stabilizer": 1e-7}), (H, W))
     a1 = torch.nn.functional.conv2d(t(rng.standard_normal((b, 1, H, W))), w0, b0,
                                     padding=1).permute(0, 2, 3, 1).contiguous()
     apre = vgg.conv2d_same_nhwc(torch.clamp(a1, min=0.0), w3, gconv.biases[1]).contiguous()
@@ -255,29 +255,29 @@ def main() -> int:
         lambda: chain._deep_main(R, M, a1, gconv, fl, (2, kw), stream))}), flush=True)
     del R, M, a1, apre
     gamma_nonneg(libs, rng, t, stream)
-    merged_tail(libs, rng, t, conv, vgg, chain)
+    merged_tail(libs, rng, t, conv, vgg, chain, taps)
     return 0
 
 
 def gamma_nonneg(libs, rng, t, stream) -> None:
     """gamma_nonneg's prep and apply at the shared walk's shapes."""
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma, taps
     for label, b, H, W, ci, co in GAMMA_NONNEG:
         w = t(rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
-        taps = fused_gamma.pair_taps(w, t(rng.standard_normal(co) * 0.05), 0.25)
+        cv = taps.gamma_conv(w, t(rng.standard_normal(co) * 0.05), 0.25, 1e-7)
         x = t(np.maximum(rng.standard_normal((b, ci, H, W)), 0))
         R = t(rng.standard_normal((K * b, co, H, W)))
         print(json.dumps({"launch": "gamma_nonneg_prep", "shape": label, "ms": timed(
             libs, "gamma_nonneg", "gamma_nonneg_prep",
-            lambda: fused_gamma._prep(x, taps, 1e-7, stream))}), flush=True)
-        M = fused_gamma._prep(x, taps, 1e-7, stream)
+            lambda: fused_gamma._prep(x, cv, stream))}), flush=True)
+        M = fused_gamma._prep(x, cv, stream)
         print(json.dumps({"launch": "gamma_nonneg_apply", "shape": label, "ms": timed(
             libs, "gamma_nonneg", "gamma_nonneg_apply",
-            lambda: fused_gamma._apply(R, M, x, taps, K, stream))}), flush=True)
+            lambda: fused_gamma._apply(R, M, x, cv, K, stream))}), flush=True)
         del x, R, M
 
 
-def merged_tail(libs, rng, t, conv, vgg, chain) -> None:
+def merged_tail(libs, rng, t, conv, vgg, chain, taps) -> None:
     """merged_tail's main kernel at the 3s widths, DRSA layer 10 (two merged
     convs, 32 -> 64 above 32 -> 32), b=256, on its preps' output."""
     b, H, W, C, C6 = 256, 128, 128, 32, 64
@@ -286,9 +286,9 @@ def merged_tail(libs, rng, t, conv, vgg, chain) -> None:
           t(np.maximum(rng.standard_normal((b, H // 2, W // 2, C)), 0))]
     apres = [t(rng.standard_normal((b, H // 2, W // 2, C)))]
     w0, b0 = t(rng.standard_normal((C, 1, 3, 3)) * 0.5), t(rng.standard_normal(C) * 0.1)
-    fl = chain.prep_first_weights({"c0": {"weight": w0, "bias": b0}},
-                                  vgg.LayerSpec("conv", "c0", {}),
-                                  ("wsquare", {"stabilizer": 1e-7}), (H, W))
+    fl = taps.prep_first_weights({"c0": {"weight": w0, "bias": b0}},
+                                 vgg.LayerSpec("conv", "c0", {}),
+                                 ("wsquare", {"stabilizer": 1e-7}), (H, W))
     a1 = t(rng.standard_normal((b, H, W, C)))
     R = t(rng.standard_normal((b, K, H // 4, W // 4, C6)))
     preps = chain._merged_preps(xs, convs, apres)

@@ -34,8 +34,8 @@
    the same request (upload, front-end, forward + upper LRP, lower segment,
    readback, sort; medians of STAGE_REPS), and traces one request with
    torch.profiler for the device time of each kernel and the idle share.
-5m. The merged-tail path (the switch chain.CHAIN_MERGED set here, the
-   DRSA_CHAIN_MERGED variable cleared at start): three 32-clip 3s requests
+5m. The merged-tail path (the switch chain.CHAIN_MERGED set here): three
+   32-clip 3s requests
    with the counters set to 0 just before and read just after (chain_block
    and merged_tail once each, first_layer never, per request), the checks
    of 2 and one request against the default multi-kernel path; one 32-clip
@@ -540,20 +540,20 @@ def gamma_nonneg_split_ms(x, R, w, b, K, gamma=0.25, stabilizer=1e-6) -> dict:
     memory a block; the rest of the wrapper's call (the cached taps' lookup,
     the allocations, the host's time where the device waits for it) as the
     whole call less both; and the host's time to build the layer's taps
-    anew (fused_gamma.build_pair_taps, which the cache saves on every call
-    after a layer's first)."""
+    anew (taps.build_gamma_conv with the pair's apply layout, which the
+    cache saves on every call after a layer's first)."""
     import ctypes
     import time
 
     import torch
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    from drsa_audio_tpu_torch.xai.lrp import fused_gamma, taps
 
     n, ci, H, W = x.shape
     co = w.shape[0]
-    taps = fused_gamma.pair_taps(w, b, gamma)
+    cv = taps.gamma_conv(w, b, gamma, stabilizer)
     x, R = x.contiguous(), R.contiguous()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    M = fused_gamma._prep(x, taps, stabilizer, stream)
+    M = fused_gamma._prep(x, cv, stream)
     prep = bounds(2.0 * n * H * W * 9 * ci * 2 * co,
                   4.0 * (x.numel() + 2 * w.numel() + 3 * co + M.numel()))
     apply = bounds(2.0 * K * n * H * W * 9 * co * ci,
@@ -561,16 +561,16 @@ def gamma_nonneg_split_ms(x, R, w, b, K, gamma=0.25, stabilizer=1e-6) -> dict:
     whole = cuda_ms(lambda: fused_gamma.gamma_nonneg_folded(x, R, w, b, K, gamma, stabilizer), 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fused_gamma.build_pair_taps(w, b, gamma)
+    taps.build_gamma_conv(w, b, gamma, stabilizer).w_apply_pair_wg
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
-    out = {"level": [H, W], "ci": ci, "co": co, "prep_cols": taps.prep_cols,
-           "apply_cols": taps.apply_cols,
-           "prep_ms": cuda_ms(lambda: fused_gamma._prep(x, taps, stabilizer, stream), 5),
+    out = {"level": [H, W], "ci": ci, "co": co, "prep_cols": cv.prep_cols,
+           "apply_cols": cv.apply_pair_cols,
+           "prep_ms": cuda_ms(lambda: fused_gamma._prep(x, cv, stream), 5),
            "prep_bound_ms": prep["bound_ms"],
-           "apply_ms": cuda_ms(lambda: fused_gamma._apply(R, M, x, taps, K, stream), 5),
+           "apply_ms": cuda_ms(lambda: fused_gamma._apply(R, M, x, cv, K, stream), 5),
            "apply_bound_ms": apply["bound_ms"], "ms": whole, "taps_build_host_ms": build_ms,
-           **dict(zip(("prep_smem_bytes", "apply_smem_bytes"), fused_gamma.gamma_smem(taps, H)))}
+           **dict(zip(("prep_smem_bytes", "apply_smem_bytes"), fused_gamma.gamma_smem(cv, H)))}
     out["rest_ms"] = whole - out["prep_ms"] - out["apply_ms"]
     return out
 
@@ -924,7 +924,7 @@ def unsorted_heatmaps(svc, wavs, class_name: str, **kw):
     """One request's heatmaps [b, K+1, h, w] on the card, in the concepts'
     own order: ``_dispatch`` returns them sorted, with the order it used,
     and the sort is undone."""
-    from drsa_audio_tpu_torch.serving import unsort_concepts
+    from drsa_audio_tpu_torch.xai.explain import unsort_concepts
     heat, _, _, order = svc._dispatch(wavs, class_name, **kw)
     return unsort_concepts(heat, order)
 
@@ -3048,7 +3048,6 @@ def main() -> int:
     from drsa_audio_tpu_torch.xai.lrp import chain
 
     # the merged-tail switch is this script's own: the module flag below
-    os.environ.pop("DRSA_CHAIN_MERGED", None)
     chain.CHAIN_MERGED = False
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

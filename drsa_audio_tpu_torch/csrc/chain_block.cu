@@ -61,7 +61,7 @@
 // all of Ci in one tile of BN columns (8 ... 64, 104, 128) up to 128
 // channels, and for a conv over 128 channels (in or out) in chunks of BN =
 // 128 columns, one a grid column (z). The host lays the taps out at these
-// widths (xai/lrp/chain.py prep_chunk, apply_chunk) and passes BN; the
+// widths (xai/lrp/taps.py prep_chunk, apply_chunk) and passes BN; the
 // kernels take it from there and refuse a width they lack.
 // A stage holds the two staged regions and the taps (576 * BN bytes): two
 // blocks an SM up to 64 columns, one for the apply's 104 and 128 (the 6s
@@ -440,7 +440,7 @@ extern "C" {
 
 // Phase 1. x [b,H,W,Ci] (read as relu(x)), w the interleaved forward pair,
 // pre-split, in column chunks of BN (16 or 32) columns: [ceil(2Co/BN),
-// ceil(Ci/8), 2, 9, 2, BN, 4] (xai/lrp/chain.py GammaConv.w_prep_wg, whose
+// ceil(Ci/8), 2, 9, 2, BN, 4] (xai/lrp/taps.py GammaConv.w_prep_wg, whose
 // layout chooses BN), bias [3,Co], G [b,H,W,Co]; apre [b,H,W,Co] or NULL: G
 // is zeroed off the first-argmax route of relu(apre) over (kh, kw) windows
 // (H % kh == W % kw == 0). Returns cudaErrorInvalidValue, before any launch,

@@ -10,7 +10,7 @@
 //
 // 3xTF32. Each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna), A once per staged value (split_region), B once on the host
-// (xai/lrp/chain.py wgmma_taps), and the product is summed as lo*hi + hi*lo
+// (xai/lrp/taps.py wgmma_taps), and the product is summed as lo*hi + hi*lo
 // + hi*hi in an f32 accumulator: about 2^-21 relative error per product
 // against f32's 2^-24, at three tensor-core products per f32 product (495 /
 // 3 = 165 TFLOP/s on an H100 SXM, 2.5x the FMA units' 67). LRP stays

@@ -14,7 +14,7 @@
 // ldmatrix loads (hi, lo) of the split region at the tap's constant offset
 // (tc::lane_row, tc::ldsm_a): no copy of the region is staged per tap.
 //
-// B from shared memory, pre-split on the host (xai/lrp/chain.py
+// B from shared memory, pre-split on the host (xai/lrp/taps.py
 // wgmma_taps): hi = tf32(w), lo = tf32(w - hi), laid out K-major as one
 // contiguous block per 8-channel slice, [part (hi, lo)][tap][kc][BN][4]
 // (kc the slice's two 4-channel halves). A (part, tap) tile is the
@@ -362,7 +362,7 @@ template <int N>
 using ic = std::integral_constant<int, N>;
 
 // f(BN, MT) for a prep's column chunk of BN columns (the width the host
-// laid the forward pair out in, xai/lrp/chain.py prep_chunk) at a level of
+// laid the forward pair out in, xai/lrp/taps.py prep_chunk) at a level of
 // H rows: two m64 tiles a warpgroup (a 32 x 8 pixel tile) where the level
 // is 32 rows or more, else one; no for a width without an instance.
 template <class F, class R>
@@ -375,7 +375,7 @@ R prep_tile(int BN, int H, F f, R no) {
   }
 }
 
-// f(BN, MT) for an apply's one tile of BN columns (chain.py wg_cols) at a
+// f(BN, MT) for an apply's one tile of BN columns (taps.py wg_cols) at a
 // level of H rows: two m64 tiles a warpgroup up to 32 columns on a level of
 // 32 rows or more, else one; no for a width without an instance.
 template <class F, class R>

@@ -247,7 +247,7 @@ template <int BN>
 constexpr size_t smem_bytes() { return sizeof(float) * (BARS + TP + A + 2 * stage_floats<BN>()); }
 
 // f(BN) for taps BN columns wide (the width of the host's layout,
-// xai/lrp/chain.py wg_cols); no for a width without an instance.
+// xai/lrp/taps.py wg_cols); no for a width without an instance.
 template <class F, class R>
 R deep_tile(int BN, F f, R no) {
   switch (BN) {
@@ -311,7 +311,7 @@ extern "C" {
 // R [b,K,H/kh,W/kw,C], M [b,H,W,C] (chain_gamma_prep of relu(a1), masked by
 // the pool route of relu(apre)), a1 [b,H,W,C0], wt [ceil(C/8),2,9,2,BN,4]
 // (the transposed w + g*w+, pre-split in one chunk of BN >= C0 columns, 8,
-// 16, 32 or 64: xai/lrp/chain.py GammaConv.w_apply_wg, whose layout chooses
+// 16, 32 or 64: xai/lrp/taps.py GammaConv.w_apply_wg, whose layout chooses
 // BN), z0 [H,W,C0], taps [9,C0], heat [b,K,H,W], rim a scratch of
 // b*K*ceil(H/16)*ceil(W/8)*96 floats. Two launches: the tiles, then the rim
 // pass. Needs C0 in {8, 16, ..., 64}, C a count chain_block.cu takes (a

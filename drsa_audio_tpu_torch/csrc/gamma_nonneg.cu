@@ -322,7 +322,7 @@ extern "C" {
 
 // x [b,Ci,H,W], w the interleaved forward pair, pre-split, in column chunks
 // of BN (16 or 32) columns: [ceil(2Co/BN), ceil(Ci/8), 2, 9, 2, BN, 4]
-// (xai/lrp/fused_gamma.py PairTaps.w_prep_wg, whose layout chooses BN),
+// (xai/lrp/taps.py GammaConv.w_prep_wg, whose layout chooses BN),
 // bias [3,Co] (b1, b0, b2), M [b,H,W,2Co]. Returns cudaErrorInvalidValue,
 // before the launch, for counts, sizes, widths or alignments it does not
 // take; else cudaGetLastError().
@@ -347,7 +347,7 @@ int gamma_nonneg_prep(const float* x, const float* w, const float* bias, float* 
 // R [K*b,Co,H,W] (clone-major), M [b,H,W,2Co] (from the prep), x
 // [b,Ci,H,W], wt the pair flipped and transposed, rows interleaved as M,
 // pre-split in one chunk of BN >= Ci columns (8 ... 64, 104 or 128):
-// [1, Co/4, 2, 9, 2, BN, 4] (PairTaps.w_apply_wg), out [K*b,Ci,H,W].
+// [1, Co/4, 2, 9, 2, BN, 4] (GammaConv.w_apply_pair_wg), out [K*b,Ci,H,W].
 // Refusals as the prep, and for BN < Ci.
 int gamma_nonneg_apply(const float* R, const float* M, const float* x, const float* wt,
                        float* out, int b, int K, int H, int W, int Ci, int Co, int BN,

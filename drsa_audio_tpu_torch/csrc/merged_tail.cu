@@ -424,7 +424,7 @@ extern "C" {
 // merged = 2: R [b,K,H/4,W/4,C6] at conv 6's output, G6 [b,H/4,W/4,C6] and
 // x6 [b,H/4,W/4,C] its multiplier and input, wt6 its transposed w + g*w+,
 // pre-split in one chunk of BN6 columns [1,C6/8,2,9,2,BN6,4]
-// (xai/lrp/chain.py GammaConv.w_apply_wg). merged = 1: R [b,K,H/2,W/2,C] at
+// (xai/lrp/taps.py GammaConv.w_apply_wg). merged = 1: R [b,K,H/2,W/2,C] at
 // conv 3's output; G6, x6, wt6 are not read. Both: M3 [b,H/2,W/2,C] conv 3's
 // multiplier (with the pool-5 route for merged = 2), x3 [b,H/2,W/2,C] its
 // input, wt3 [1,C/8,2,9,2,BN3,4] (w_apply_wg), a1 [b,H,W,C] the first conv's

@@ -32,7 +32,7 @@ from drsa_audio_tpu_torch.runtime.loader import load_audio
 from drsa_audio_tpu_torch.utils.constants import CLASS_IDX_MAPPER, CLASS_IDX_MAPPER_TOY
 from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.device import params_on, resolve_device
-from drsa_audio_tpu_torch.xai.explain import class_composite, subspace_heatmaps
+from drsa_audio_tpu_torch.xai.explain import class_composite, sort_concepts, subspace_heatmaps
 
 
 @dataclasses.dataclass
@@ -109,33 +109,6 @@ def _prepare(path: str, window: int, target_sr: int, on_short: str) -> np.ndarra
                              f"than the {window}-sample analysis window")
         w = np.pad(w, (0, window - len(w)))
     return w[:window]
-
-
-def _front_index(order: torch.Tensor) -> torch.Tensor:
-    """Slots [b, K+1] of a request's maps: the standard map, then ``order``."""
-    return torch.cat([torch.zeros_like(order[:, :1]), order + 1], dim=1)
-
-
-def sort_concepts(heat: torch.Tensor):
-    """The service's subspace sort (``xai.explain.sort_subspaces``) where
-    the maps live, with no host sync: ``heat`` [b, K+1, h, w] is the
-    standard map, then the K concept maps. Returns the maps in one new
-    tensor, the standard map still first and the concepts by descending
-    relevance, their float32 relevances [b, K+1], and the int64 ``order``
-    [b, K] of the concepts: ``np.argsort(rel)[..., ::-1]``'s wherever the
-    relevances differ, with exact ties larger index first (a stable
-    ascending sort, flipped)."""
-    rel = heat.sum(dim=(-2, -1))
-    order = torch.sort(rel[:, 1:], dim=-1, stable=True).indices.flip(-1)
-    idx = _front_index(order)
-    return torch.take_along_dim(heat, idx[:, :, None, None], dim=1), rel.gather(1, idx), order
-
-
-def unsort_concepts(heat: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """``sort_concepts`` undone: the maps [b, K+1, h, w] with the concepts
-    back in their own order."""
-    idx = _front_index(order)
-    return heat.clone().scatter_(1, idx[:, :, None, None].expand_as(heat), heat)
 
 
 class ExplainerService:

@@ -297,14 +297,32 @@ def subspace_heatmaps_repeated(specs_proj: Sequence[LayerSpec], params: dict,
     return R.reshape(-1, k1, *x.shape[1:])[:, :, 0], logits
 
 
-def sort_subspaces(subspace_heatmaps: np.ndarray):
-    """Sort each instance's subspace heatmaps by descending total relevance
-    (reference explainer.py:151-176). Returns (heatmaps, relevances, order)."""
-    rel = subspace_heatmaps.sum(axis=(-2, -1))
-    order = np.argsort(rel, axis=-1)[..., ::-1]
-    b = subspace_heatmaps.shape[0]
-    return (subspace_heatmaps[np.arange(b)[:, None], order],
-            rel[np.arange(b)[:, None], order], order)
+def _front_index(order: torch.Tensor) -> torch.Tensor:
+    """Slots [b, K+1] of the maps: the standard map, then ``order``."""
+    return torch.cat([torch.zeros_like(order[:, :1]), order + 1], dim=1)
+
+
+def sort_concepts(heat: torch.Tensor):
+    """Sort each instance's concept maps by descending total relevance
+    (reference explainer.py:151-176) where the maps live, with no host
+    sync: ``heat`` [b, K+1, h, w] is the standard map, then the K concept
+    maps. Returns the maps in one new tensor, the standard map still first
+    and the concepts by descending relevance, their float32 relevances
+    [b, K+1], and the int64 ``order`` [b, K] of the concepts: the
+    reference's ``np.argsort(rel)[..., ::-1]`` wherever the relevances
+    differ, with exact ties larger index first (a stable ascending sort,
+    flipped)."""
+    rel = heat.sum(dim=(-2, -1))
+    order = torch.sort(rel[:, 1:], dim=-1, stable=True).indices.flip(-1)
+    idx = _front_index(order)
+    return torch.take_along_dim(heat, idx[:, :, None, None], dim=1), rel.gather(1, idx), order
+
+
+def unsort_concepts(heat: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``sort_concepts`` undone: the maps [b, K+1, h, w] with the concepts
+    back in their own order."""
+    idx = _front_index(order)
+    return heat.clone().scatter_(1, idx[:, :, None, None].expand_as(heat), heat)
 
 
 @dataclasses.dataclass
@@ -346,7 +364,10 @@ class HeatmapGenerator:
         self.info: dict = {}
 
     def _heatmaps(self, x: torch.Tensor, one_hot_encoded, flip_all_classes,
-                  shared_denominators, clone_chunk) -> np.ndarray:
+                  shared_denominators, clone_chunk, sort) -> tuple:
+        """The maps [b, K+1, h, w] of one attribution chunk, read back as
+        numpy; with ``sort``, sorted on the device first (sort_concepts),
+        with their relevances and the concepts' order."""
         with torch.inference_mode():
             if flip_all_classes:
                 kw = {"num_classes": self.num_classes, "one_hot_encoded": one_hot_encoded}
@@ -358,7 +379,8 @@ class HeatmapGenerator:
             heat, _ = subspace_heatmaps(self.specs_proj, self.params, x, self.composite,
                                         self.num_concepts, shared_denominators=shared_denominators,
                                         clone_chunk=clone_chunk, **kw)
-            return heat.cpu().numpy()
+            out = sort_concepts(heat) if sort else (heat,)
+            return tuple(t.cpu().numpy() for t in out)
 
     def generate_subspace_heatmaps(self, input_batch, one_hot_encoded: bool = False,
                                    concept_flipping: bool = False,
@@ -375,25 +397,26 @@ class HeatmapGenerator:
         in the whole batch."""
         x = torch.as_tensor(input_batch, dtype=torch.float32, device=self.device)
         self.info["input"] = x.cpu().numpy()
-        args = (one_hot_encoded, flip_all_classes, shared_denominators, clone_chunk)
+        args = (one_hot_encoded, flip_all_classes, shared_denominators, clone_chunk,
+                not concept_flipping)
         if attr_batch_size and x.shape[0] > attr_batch_size:
             if flip_all_classes:
                 raise ValueError("attr_batch_size cannot be combined with "
                                  "flip_all_classes (batch-position-dependent mask)")
-            heat = np.concatenate([self._heatmaps(x[i:i + attr_batch_size], *args)
-                                   for i in range(0, x.shape[0], attr_batch_size)])
+            chunks = [self._heatmaps(x[i:i + attr_batch_size], *args)
+                      for i in range(0, x.shape[0], attr_batch_size)]
+            out = [np.concatenate(parts) for parts in zip(*chunks)]
         else:
-            heat = self._heatmaps(x, *args)                  # [b, K+1, h, w]
+            out = self._heatmaps(x, *args)
         if concept_flipping:
-            return heat[:, 1:]
-        standard = heat[:, 0:1]
-        sub, sub_rel, mask = sort_subspaces(heat[:, 1:])
-        self.info["standard_heatmaps"] = standard
-        self.info["standard_relevance"] = standard.sum(axis=(-2, -1)).flatten()
-        self.info["subspace_heatmaps"] = sub
-        self.info["subspace_relevances"] = sub_rel
-        self.info["mask"] = mask
-        return sub
+            return out[0][:, 1:]
+        heat, rel, order = out                           # [b, K+1, h, w], [b, K+1], [b, K]
+        self.info["standard_heatmaps"] = heat[:, 0:1]
+        self.info["standard_relevance"] = rel[:, 0]
+        self.info["subspace_heatmaps"] = heat[:, 1:]
+        self.info["subspace_relevances"] = rel[:, 1:]
+        self.info["mask"] = order
+        return heat[:, 1:]
 
 
 def compute_subspace_relevances(act_vecs, ctx_vecs, U, n_concepts: int = 4,

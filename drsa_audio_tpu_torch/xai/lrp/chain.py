@@ -8,9 +8,9 @@ covering the block's gamma convs and the max-pool below it, then the first
 block: ``first_layer`` (pool route, relu gate and wsquare/flat rule) when it
 holds only the first conv (3s, toy), or ``first_block_deep`` (pool route,
 the gamma rule of its second conv, then the same tail) when it holds two
-(the 6s model). With the merged-tail switch on (``CHAIN_MERGED`` or
-``DRSA_CHAIN_MERGED=1``, off by default) the 3s and toy models instead run
-blocks nb-2 .. 0 and the first-layer tail as one ``merged_tail``.
+(the 6s model). With the merged-tail switch on (``CHAIN_MERGED``, off by
+default) the 3s and toy models instead run blocks nb-2 .. 0 and the
+first-layer tail as one ``merged_tail``.
 
 Each of the four functions has a plain PyTorch version beside it
 (``*_plain``). The wrapper runs the plain version for tensors on the CPU and
@@ -35,11 +35,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import dataclasses
-import os
 from typing import Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,20 +44,15 @@ from drsa_audio_tpu_torch.models.vgg import conv2d_same_nhwc
 from drsa_audio_tpu_torch.utils import profiling
 from drsa_audio_tpu_torch.utils.nvcc import check_cuda, load, raise_on
 from drsa_audio_tpu_torch.xai.lrp.rules import stabilize
+from drsa_audio_tpu_torch.xai.lrp.taps import (
+    FirstLayer, GammaConv, build_gamma_conv, prep_first_weights)
 
 LAUNCHES = {"chain_block": 0, "first_layer": 0, "first_block_deep": 0, "merged_tail": 0}
 
 # Merged-tail switch: run blocks nb-2 .. 0 and the first-layer tail in one
 # kernel (merged_tail), so that the per-clone relevances between them never
-# reach device memory. Off by default, as in the JAX package; the
-# DRSA_CHAIN_MERGED environment variable (0/1) overrides it when set.
-CHAIN_MERGED = os.environ.get("DRSA_CHAIN_MERGED", "0") == "1"
-
-
-def _chain_merged() -> bool:
-    """The switch, read at call time: the environment wins when set."""
-    v = os.environ.get("DRSA_CHAIN_MERGED")
-    return v == "1" if v is not None else CHAIN_MERGED
+# reach device memory. Off by default, as in the JAX package.
+CHAIN_MERGED = False
 
 
 def reset_launches() -> None:
@@ -108,147 +100,12 @@ def _conv_t_nhwc(g, w):
     return F.conv_transpose2d(g.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
 
 
-# ----------------------------------------------------------- weight prep
-
-SLICE = 8     # the wgmma kernels' reduction slice (csrc/conv3x3_tc.cuh CC)
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on float32 values: the significand rounded to 10 bits,
-    ties away from zero (add 0x1000 to the bit pattern, clear the low 13
-    bits)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def wg_cols(n: int) -> int:
-    """The width of a wgmma B tile for n columns: the next of 8, 16, 32, 64,
-    104, 128 (the widths the kernels are built for), past 128 the next
-    multiple of 64. The layout's width is the one decision: the wrappers
-    pass it to the kernels, which refuse a width they lack."""
-    for c in (8, 16, 32, 64, 104, 128):
-        if n <= c:
-            return c
-    return -(-n // 64) * 64
-
-
-def apply_chunk(ci: int, co: int) -> int:
-    """chain_gamma_apply's column width for a conv of Ci -> Co channels:
-    one tile of ``wg_cols(Ci)`` up to 128 channels in and out; for a conv
-    over 128 channels, chunks of 128 columns, one a grid column of the
-    launch (csrc/chain_block.cu)."""
-    return wg_cols(ci) if max(ci, co) <= 128 else 128
-
-
-def prep_chunk(n: int) -> int:
-    """chain_gamma_prep's column chunk for N = 2*Co columns: the tile width,
-    at most 32, so that the prep's FRESH scratch fragments fit beside its
-    accumulators (csrc/chain_block.cu)."""
-    return min(wg_cols(n), 32)
-
-
-def wgmma_taps(taps: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Taps [9, Kr, N] (tap, reduction channel, output column), split once
-    into hi = tf32(w) and lo = tf32(w - hi) and laid out K-major for the
-    wgmma kernels as [ceil(N/chunk), ceil(Kr/8), 2 (hi, lo), 9, 2, chunk, 4]:
-    per column chunk and 8-channel slice one contiguous block, in which a
-    (part, tap) tile holds the slice's two 4-channel halves (kc), each
-    [chunk][4] (column n, channel 8s + 4kc + i at [kc][n][i]). Zeros past Kr
-    and N."""
-    _, kr, n = taps.shape
-    nsl, ncb = -(-kr // SLICE), -(-n // chunk)
-    t = taps.new_zeros((9, nsl * SLICE, ncb * chunk))
-    t[:, :kr, :n] = taps
-    hi = tf32(t)
-    parts = torch.stack([hi, tf32(t - hi)])                  # [2, 9, nsl*8, ncb*chunk]
-    parts = parts.reshape(2, 9, nsl, 2, 4, ncb, chunk)       # part, tap, s, kc, i, cb, n
-    return parts.permute(5, 2, 0, 1, 3, 6, 4).contiguous()
-
-
-@dataclasses.dataclass
-class GammaConv:
-    """One inner gamma conv, prepared (port of _prep_inner_weights, in plain
-    NHWC). wz1 = w + g*w+, wz3 = w + g*w- (OIHW); biases = (b + g*b+, b,
-    b + g*b-). The kernels' tap layouts: ``w_prep_wg`` the forward pair
-    interleaved (column 2j wz1's output channel j, 2j + 1 wz3's), pre-split
-    by ``wgmma_taps`` in column chunks of ``prep_chunk(2*Co)``
-    (chain_gamma_prep); ``w_apply_wg`` the transposed wz1, pre-split in
-    column chunks of ``apply_chunk(Ci, Co)``: one chunk up to 128 channels
-    (chain_gamma_apply, first_block_deep, merged_tail), chunks of 128 for a
-    conv over 128 channels (chain_gamma_apply)."""
-    wz1: torch.Tensor
-    wz3: torch.Tensor
-    biases: torch.Tensor
-    inv: float
-    stab: float
-    w_prep_wg: torch.Tensor
-    w_apply_wg: torch.Tensor
-
-    @property
-    def prep_cols(self) -> int:
-        """The column chunk ``w_prep_wg`` is laid out in."""
-        return self.w_prep_wg.shape[-2]
-
-    @property
-    def apply_cols(self) -> int:
-        """The column chunk ``w_apply_wg`` is laid out in."""
-        return self.w_apply_wg.shape[-2]
-
-    @property
-    def ci(self) -> int:
-        return self.wz1.shape[1]
-
-    @property
-    def co(self) -> int:
-        return self.wz1.shape[0]
-
-
 def prep_inner_weights(params: dict, spec, kwargs: dict) -> GammaConv:
+    """The plan's adapter: the GammaConv of ``spec``'s weights under its
+    gamma rule's arguments, built anew."""
     p = params[spec.name]
-    w, b = p["weight"], p["bias"]
-    g = float(kwargs.get("gamma", 0.25))
-    wz1 = w + g * torch.clamp(w, min=0.0)
-    wz3 = w + g * torch.clamp(w, max=0.0)
-    biases = torch.stack([b + g * torch.clamp(b, min=0.0), b,
-                          b + g * torch.clamp(b, max=0.0)])
-    co, ci = w.shape[:2]
-    pair = torch.stack([wz1, wz3], dim=1).reshape(2 * co, ci, 3, 3)
-    pair = pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co)
-    w_apply = wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous()
-    return GammaConv(
-        wz1=wz1, wz3=wz3, biases=biases.contiguous(),
-        inv=float(np.float32(1.0 / (2.0 + g))),
-        stab=float(kwargs.get("stabilizer", 1e-6)),
-        w_prep_wg=wgmma_taps(pair, prep_chunk(2 * co)),
-        w_apply_wg=wgmma_taps(w_apply, apply_chunk(ci, co)))
-
-
-@dataclasses.dataclass
-class FirstLayer:
-    """The first conv's wsquare/flat pieces (port of _prep_first_weights):
-    rule weights ``wm`` [C, 1, 3, 3], the input-independent denominator
-    ``z0`` [H, W, C] and the kernel's transposed-conv taps [9, C]."""
-    wm: torch.Tensor
-    z0: torch.Tensor
-    taps: torch.Tensor
-    stab0: float
-
-
-def prep_first_weights(params: dict, spec, rule, fine_hw) -> FirstLayer:
-    p = params[spec.name]
-    w, b = p["weight"], p.get("bias")
-    name, kwargs = rule
-    if w.shape[1] != 1:
-        raise ValueError("the first-layer tail needs a single input channel")
-    if name == "wsquare":
-        wm, bm = w * w, (b * b if b is not None else None)
-    else:                                   # flat
-        wm, bm = torch.ones_like(w), None
-    ones = torch.ones((1, 1) + tuple(fine_hw), dtype=w.dtype, device=w.device)
-    z0 = F.conv2d(ones, wm, bm, padding=1)[0].permute(1, 2, 0).contiguous()
-    taps = wm[:, 0].flip(1, 2).permute(1, 2, 0).reshape(9, -1).contiguous()
-    return FirstLayer(wm=wm, z0=z0, taps=taps,
-                      stab0=float(kwargs.get("stabilizer", 1e-6)))
+    return build_gamma_conv(p["weight"], p["bias"], float(kwargs.get("gamma", 0.25)),
+                            float(kwargs.get("stabilizer", 1e-6)))
 
 
 # ------------------------------------------------------- the kernels' predicates
@@ -805,7 +662,7 @@ def fused_lower_conv_backward(plan, params: dict, acts_nhwc, R_nhwc: torch.Tenso
     M = nb - 2 and merged_tail takes the rest."""
     specs, blocks = plan["specs"], plan["blocks"]
     M = len(blocks) - 2
-    merged = _chain_merged() and mergeable(plan, params)
+    merged = CHAIN_MERGED and mergeable(plan, params)
     R = R_nhwc
     for i in range(len(blocks) - 1, M if merged else 0, -1):
         blk = blocks[i]

@@ -6,23 +6,22 @@ drsa_audio_tpu.xai.lrp.pallas_gamma).
 the CUDA kernel (``csrc/gamma_nonneg.cu``) for CUDA tensors; it never falls
 back from one to the other. ``LAUNCHES`` counts the calls that launched the
 kernel. The shared-denominator walk reaches it through
-``rules.shared_gamma_nonneg`` for every 3x3 conv (``takes``). The kernel's
-pre-split taps are built once per layer (``pair_taps``).
+``rules.shared_gamma_nonneg`` for every 3x3 conv (``takes``). The kernel
+reads the layer's GammaConv (xai.lrp.taps), built once per layer
+(``taps.gamma_conv``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from drsa_audio_tpu_torch.utils.nvcc import check_cuda, load, raise_on
-from drsa_audio_tpu_torch.xai.lrp.chain import prep_chunk, wg_cols, wgmma_taps
 from drsa_audio_tpu_torch.xai.lrp.rules import _gmods, _mul_small, stabilize
+from drsa_audio_tpu_torch.xai.lrp.taps import GammaConv, gamma_conv
 
 LAUNCHES = {"gamma_nonneg": 0}
 
@@ -65,78 +64,6 @@ def gamma_nonneg_folded_plain(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
     return _mul_small(F.conv_transpose2d(s, wpn, padding=1), x, K)
 
 
-@dataclasses.dataclass
-class PairTaps:
-    """The kernel's weights for one conv w [Co, Ci, 3, 3] and bias b at one
-    gamma: the forward pair wz1 = w + g*w+, wz3 = w + g*w- interleaved by
-    output channel (column 2o wz1's channel o, 2o + 1 wz3's) as
-    ``w_prep_wg``, pre-split by chain.wgmma_taps in column chunks of
-    chain.prep_chunk(2*Co) (the chain's GammaConv.w_prep_wg); the pair
-    flipped and transposed, reduction row 2o + s wz1's (s = 0) or wz3's (s =
-    1) output channel o, the order of the prep's (m1, m3), as ``w_apply_wg``
-    in one chunk of chain.wg_cols(Ci); the biases [3, Co] (b1, b0, b2); and
-    inv = f32(1/(2+g))."""
-    w_prep_wg: torch.Tensor
-    w_apply_wg: torch.Tensor
-    biases: torch.Tensor
-    inv: float
-
-    @property
-    def prep_cols(self) -> int:
-        """The column chunk ``w_prep_wg`` is laid out in."""
-        return self.w_prep_wg.shape[-2]
-
-    @property
-    def apply_cols(self) -> int:
-        """The column width ``w_apply_wg`` is laid out in."""
-        return self.w_apply_wg.shape[-2]
-
-
-def build_pair_taps(w: torch.Tensor, b: torch.Tensor | None, gamma: float) -> PairTaps:
-    """PairTaps of w and b at gamma, built anew (pair_taps caches them)."""
-    co, ci = w.shape[:2]
-    gp, gn = _gmods(gamma)
-    b0 = torch.zeros(co, dtype=w.dtype, device=w.device) if b is None else b
-    pair = torch.stack([gp(w), gn(w)], dim=1).reshape(2 * co, ci, 3, 3)
-    BUILDS["pair_taps"] += 1
-    return PairTaps(
-        w_prep_wg=wgmma_taps(pair.permute(2, 3, 1, 0).reshape(9, ci, 2 * co), prep_chunk(2 * co)),
-        w_apply_wg=wgmma_taps(pair.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 2 * co, ci),
-                              wg_cols(ci)),
-        biases=torch.stack([gp(b0), b0, gn(b0)]).contiguous(),
-        inv=float(np.float32(1.0 / (2.0 + gamma))))
-
-
-# {(id(w), id(b), gamma): (weakref to w, weakref to b, stamp, PairTaps)}: the
-# taps of each layer the walk has met, built once and served while the
-# weight and bias are the same tensors at the same version (an in-place
-# update bumps it) and storage.
-_TAPS: dict = {}
-BUILDS = {"pair_taps": 0}
-
-
-def _stamp(t: torch.Tensor | None):
-    return None if t is None else (t._version, t.data_ptr(), t.device)
-
-
-def pair_taps(w: torch.Tensor, b: torch.Tensor | None, gamma: float) -> PairTaps:
-    """The PairTaps of a layer's weight w and bias b at gamma: built at the
-    first call (BUILDS counts the builds) and cached per layer, keyed on the
-    tensors themselves and gamma. A weight or bias changed in place, or
-    another tensor, is built again: a changed weight is never served
-    stale. An entry goes with its weight."""
-    key = (id(w), None if b is None else id(b), float(gamma))
-    hit = _TAPS.get(key)
-    stamp = (_stamp(w), _stamp(b))
-    if (hit is not None and hit[0]() is w and (b is None or hit[1]() is b)
-            and hit[2] == stamp):
-        return hit[3]
-    taps = build_pair_taps(w, b, gamma)
-    _TAPS[key] = (weakref.ref(w, lambda _, k=key: _TAPS.pop(k, None)),
-                  None if b is None else weakref.ref(b), stamp, taps)
-    return taps
-
-
 def _lib():
     lib = load("gamma_nonneg")
     if not getattr(lib, "_typed", False):
@@ -150,36 +77,35 @@ def _lib():
     return lib
 
 
-def _prep(x: torch.Tensor, taps: PairTaps, stabilizer: float, stream) -> torch.Tensor:
+def _prep(x: torch.Tensor, cv: GammaConv, stream) -> torch.Tensor:
     """One gamma_nonneg_prep launch: M = (m1, m3) interleaved [b, H, W,
     2*Co] from x [b, Ci, H, W]."""
     n, ci, H, W = x.shape
-    co = taps.biases.shape[1]
-    M = torch.empty((n, H, W, 2 * co), device=x.device)
+    M = torch.empty((n, H, W, 2 * cv.co), device=x.device)
     raise_on(_lib().gamma_nonneg_prep(
-        x.data_ptr(), taps.w_prep_wg.data_ptr(), taps.biases.data_ptr(), M.data_ptr(),
-        n, H, W, ci, co, taps.prep_cols, taps.inv, float(stabilizer), stream), "gamma_nonneg")
+        x.data_ptr(), cv.w_prep_wg.data_ptr(), cv.biases.data_ptr(), M.data_ptr(),
+        n, H, W, ci, cv.co, cv.prep_cols, cv.inv, cv.stab, stream), "gamma_nonneg")
     return M
 
 
-def _apply(R: torch.Tensor, M: torch.Tensor, x: torch.Tensor, taps: PairTaps, K: int,
+def _apply(R: torch.Tensor, M: torch.Tensor, x: torch.Tensor, cv: GammaConv, K: int,
            stream) -> torch.Tensor:
     """One gamma_nonneg_apply launch: x * convT(R * M) for every clone,
     [K*b, Ci, H, W]."""
     n, ci, H, W = x.shape
-    co = taps.biases.shape[1]
     out = torch.empty((K * n, ci, H, W), device=x.device)
     raise_on(_lib().gamma_nonneg_apply(
-        R.data_ptr(), M.data_ptr(), x.data_ptr(), taps.w_apply_wg.data_ptr(), out.data_ptr(),
-        n, K, H, W, ci, co, taps.apply_cols, stream), "gamma_nonneg")
+        R.data_ptr(), M.data_ptr(), x.data_ptr(), cv.w_apply_pair_wg.data_ptr(), out.data_ptr(),
+        n, K, H, W, ci, cv.co, cv.apply_pair_cols, stream), "gamma_nonneg")
     return out
 
 
-def gamma_smem(taps: PairTaps, H: int) -> tuple:
+def gamma_smem(cv: GammaConv, H: int) -> tuple:
     """The dynamic shared memory, bytes, a block of the prep and of the
-    apply takes for these taps at a level of H rows."""
+    apply takes for cv's layouts at a level of H rows."""
     lib = _lib()
-    return lib.gamma_nonneg_smem(1, taps.prep_cols, H), lib.gamma_nonneg_smem(0, taps.apply_cols, H)
+    return (lib.gamma_nonneg_smem(1, cv.prep_cols, H),
+            lib.gamma_nonneg_smem(0, cv.apply_pair_cols, H))
 
 
 def gamma_nonneg_folded(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
@@ -199,7 +125,7 @@ def gamma_nonneg_folded(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
     launch takes the transposed conv over the 2*Co channels R * (m1, m3)
     against the stacked flipped taps of the pair; both are 3xTF32 implicit
     GEMMs on Hopper's wgmma (csrc/conv3x3_wgmma.cuh) with the taps
-    pre-split once per layer (``pair_taps``) and staged by bulk copy, and
+    pre-split once per layer (``gamma_conv``) and staged by bulk copy, and
     they stage x and R from NCHW in whole 16-byte pieces of rows and write
     the result NCHW, so nothing is transposed. Takes 0 < Ci, Co <= 128 with
     Ci % 4 == 0 and Co a multiple of 8 or 20; raises ValueError, before any
@@ -214,8 +140,8 @@ def gamma_nonneg_folded(x: torch.Tensor, R: torch.Tensor, w: torch.Tensor,
     if (tuple(w.shape) != (Co, Ci, 3, 3) or tuple(R.shape) != (K * n, Co, H, W)
             or (b is not None and tuple(b.shape) != (Co,))):
         raise ValueError("gamma_nonneg: relevance / activation / weight shapes disagree")
-    taps = pair_taps(w, b, gamma)
+    cv = gamma_conv(w, b, gamma, stabilizer)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    out = _apply(R, _prep(x, taps, stabilizer, stream), x, taps, K, stream)
+    out = _apply(R, _prep(x, cv, stream), x, cv, K, stream)
     LAUNCHES["gamma_nonneg"] += 1
     return out

@@ -29,6 +29,7 @@ from drsa_audio_tpu_torch.utils import constants as tconst
 from drsa_audio_tpu_torch.utils.convert import from_jax_params, to_state_dict
 from drsa_audio_tpu_torch.xai import explain as texp
 from drsa_audio_tpu_torch.xai.lrp import chain as tchain
+from drsa_audio_tpu_torch.xai.lrp import taps
 from test_torch_util import (
     POOL_MARGIN, assert_close_lrp, both_models, random_bn, service_margins,
     signed_permutation, t, to_np)
@@ -151,8 +152,8 @@ def test_first_block_deep_plain_matches_jax_rule_walk(rule, rng):
 
     params_t = from_jax_params(to_np(params_j), device="cpu")
     gconv = tchain.prep_inner_weights(params_t, tvgg.LayerSpec("conv", "c3", {}), g_rule)
-    fl = tchain.prep_first_weights(params_t, tvgg.LayerSpec("conv", "c0", {}),
-                                   (rule, {"stabilizer": 1e-7}), (H, W))
+    fl = taps.prep_first_weights(params_t, tvgg.LayerSpec("conv", "c0", {}),
+                                 (rule, {"stabilizer": 1e-7}), (H, W))
     got = tchain.first_block_deep(t(R), t(a1), t(apre), gconv, fl, (2, 4))
     assert_close_lrp(got.numpy(), want)
 

@@ -20,7 +20,7 @@ from drsa_audio_tpu_torch.ops import fused_frontend
 from drsa_audio_tpu_torch.ops.frontend import FrontendConfig
 from drsa_audio_tpu_torch.xai import explain as texp
 from drsa_audio_tpu_torch.xai.lrp import chain as tchain
-from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+from drsa_audio_tpu_torch.xai.lrp import fused_gamma, taps
 from test_torch_util import assert_close_lrp, both_models, signed_permutation, t
 
 K = 3
@@ -104,9 +104,9 @@ def test_first_layer_plain_matches_jax_rule_walk(rule, rng):
         [jnp.asarray(a) for a in acts_k],
         jnp.asarray(R.transpose(1, 0, 2, 3, 4).reshape((K * 2, H // 2, W // 2, C))), comp)
     want = np.asarray(want)[..., 0].reshape(K, 2, H, W).transpose(1, 0, 2, 3)
-    fl = tchain.prep_first_weights({"c0": {"weight": t(w), "bias": t(b)}},
-                                   tvgg.LayerSpec("conv", "c0", {}), (rule, {"stabilizer": 1e-7}),
-                                   (H, W))
+    fl = taps.prep_first_weights({"c0": {"weight": t(w), "bias": t(b)}},
+                                 tvgg.LayerSpec("conv", "c0", {}), (rule, {"stabilizer": 1e-7}),
+                                 (H, W))
     got = tchain.first_layer(t(R), t(a1), fl)
     assert_close_lrp(got.numpy(), want)
 
@@ -199,12 +199,12 @@ def test_wrappers_never_fall_back(rng, monkeypatch):
     x = torch.empty((1, 8, 8, 16), device="meta")
     with pytest.raises(ValueError, match="GPU"):
         tchain.chain_block(R, [x], [cv])
-    fl = tchain.prep_first_weights(params, conv_sec[0], ("flat", {}), (64, 64))
+    fl = taps.prep_first_weights(params, conv_sec[0], ("flat", {}), (64, 64))
     with pytest.raises(ValueError, match="GPU"):
         tchain.first_layer(torch.empty((1, 2, 32, 32, 8), device="meta"),
                            torch.empty((1, 64, 64, 8), device="meta"), fl)
     gc = tchain.prep_inner_weights(params, conv_sec[3], {"gamma": 0.8})
-    fl8 = tchain.prep_first_weights(params, conv_sec[0], ("flat", {}), (8, 8))
+    fl8 = taps.prep_first_weights(params, conv_sec[0], ("flat", {}), (8, 8))
     with pytest.raises(ValueError, match="GPU"):
         tchain.first_block_deep(torch.empty((1, 2, 4, 4, 8), device="meta"),
                                 torch.empty((1, 8, 8, 8), device="meta"),

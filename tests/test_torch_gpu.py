@@ -12,7 +12,7 @@ import torch
 
 from chip_smoke import unsorted_heatmaps
 from drsa_audio_tpu_torch.models import vgg
-from drsa_audio_tpu_torch.xai.lrp import chain
+from drsa_audio_tpu_torch.xai.lrp import chain, taps
 
 pytestmark = pytest.mark.gpu
 
@@ -176,7 +176,7 @@ def test_launches_up_to_128_channels_keep_their_widths_and_tiles(cuda, ci, co, H
     wg_cols(Ci), the prep's chunks of 16 or 32, MT = 2 on 32 rows or more
     up to 32 columns, else 1."""
     cv = _conv(np.random.default_rng(2), ci, co, cuda)
-    assert cv.apply_cols == chain.wg_cols(ci) and cv.w_apply_wg.shape[0] == 1
+    assert cv.apply_cols == taps.wg_cols(ci) and cv.w_apply_wg.shape[0] == 1
     assert cv.prep_cols == (16 if co == 8 else 32)
 
     def smem(bn, mt):           # csrc/chain_block.cu: 4 * (BARS + 2 * STAGE)
@@ -207,8 +207,8 @@ def _relaid(cv, prep_chunk, apply_cols):
     pair = (torch.stack([cv.wz1, cv.wz3], dim=1).reshape(2 * cv.co, cv.ci, 3, 3)
             .permute(2, 3, 1, 0).reshape(9, cv.ci, 2 * cv.co))
     w_apply = cv.wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, cv.co, cv.ci)
-    return dataclasses.replace(cv, w_prep_wg=chain.wgmma_taps(pair, prep_chunk),
-                               w_apply_wg=chain.wgmma_taps(w_apply, apply_cols))
+    return dataclasses.replace(cv, w_prep_wg=taps.wgmma_taps(pair, prep_chunk),
+                               w_apply_wg=taps.wgmma_taps(w_apply, apply_cols))
 
 
 @pytest.mark.parametrize("prep_chunk,apply_cols,takes", [
@@ -244,7 +244,7 @@ def test_first_layer_kernel_matches_plain(cuda, rule, H, C):
     spec = vgg.LayerSpec("conv", "features.0", {})
     w = torch.as_tensor((rng.standard_normal((C, 1, 3, 3)) * 0.5).astype(np.float32), device=cuda)
     bias = torch.as_tensor((rng.standard_normal(C) * 0.1).astype(np.float32), device=cuda)
-    fl = chain.prep_first_weights({"features.0": {"weight": w, "bias": bias}}, spec,
+    fl = taps.prep_first_weights({"features.0": {"weight": w, "bias": bias}}, spec,
                                   (rule, {"stabilizer": 1e-7}), (H, H))
     a1 = rng.standard_normal((b, H, H, C)).astype(np.float32)
     a1[0, :2, :4] = 0.0                   # relu ties and an all-tied window
@@ -261,7 +261,7 @@ def _first_inputs(rng, dev, rule, b, K, H, W, C):
     spec = vgg.LayerSpec("conv", "features.0", {})
     w = torch.as_tensor((rng.standard_normal((C, 1, 3, 3)) * 0.5).astype(np.float32), device=dev)
     bias = torch.as_tensor((rng.standard_normal(C) * 0.1).astype(np.float32), device=dev)
-    fl = chain.prep_first_weights({"features.0": {"weight": w, "bias": bias}}, spec,
+    fl = taps.prep_first_weights({"features.0": {"weight": w, "bias": bias}}, spec,
                                   (rule, {"stabilizer": 1e-7}), (H, W))
     a1 = rng.standard_normal((b, H, W, C)).astype(np.float32)
     a1[0, :2, :4] = 0.0                   # relu ties and an all-tied window
@@ -305,7 +305,7 @@ def _deep_inputs(rng, dev, b, K, H, W, C0, C, kw, rule):
     gconv = chain.prep_inner_weights({"g": {"weight": w3, "bias": b3}}, spec,
                                      {"gamma": 0.3, "stabilizer": 1e-7})
     w0, b0 = t(rng.standard_normal((C0, 1, 3, 3)) * 0.5), t(rng.standard_normal(C0) * 0.1)
-    fl = chain.prep_first_weights({"c0": {"weight": w0, "bias": b0}}, spec0,
+    fl = taps.prep_first_weights({"c0": {"weight": w0, "bias": b0}}, spec0,
                                   (rule, {"stabilizer": 1e-7}), (H, W))
     mel = t(rng.standard_normal((b, 1, H, W)))
     a1 = torch.nn.functional.conv2d(mel, w0, b0, padding=1).permute(0, 2, 3, 1).contiguous()
@@ -585,8 +585,8 @@ def test_finalize_on_card_reads_back_bit_for_bit(cuda):
 def test_device_sort_matches_numpy_without_a_host_sync(cuda, K):
     """The service's sort of a card tensor at the 3s service's shape, with
     an exact tie: no host sync (the sync debug mode raises on one), and the
-    numpy path's order and maps."""
-    from drsa_audio_tpu_torch.serving import sort_concepts
+    reference's order (np.argsort of the relevances, reversed) and maps."""
+    from drsa_audio_tpu_torch.xai.explain import sort_concepts
     from test_torch_sort import check_device_sort
     g = torch.Generator(device="cuda").manual_seed(K)
     heat = torch.randn(256, K + 1, 128, 128, generator=g, device="cuda")
@@ -597,7 +597,8 @@ def test_device_sort_matches_numpy_without_a_host_sync(cuda, K):
         got = sort_concepts(heat)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    check_device_sort(heat, got)
+    want = np.argsort(heat[:, 1:].cpu().numpy().sum(axis=(-2, -1)), axis=-1)[:, ::-1]
+    check_device_sort(heat, got, want)
 
 
 @pytest.mark.parametrize("layer,d,n_blocks", [(33, 128, 4), (19, 100, 2)])
@@ -632,7 +633,7 @@ def _merged_inputs(rng, dev, b, K, H, W, C, C6, m, rule):
     apres = [t(apre)][:m - 1]
     spec = vgg.LayerSpec("conv", "c0", {})
     w0, b0 = t(rng.standard_normal((C, 1, 3, 3)) * 0.5), t(rng.standard_normal(C) * 0.1)
-    fl = chain.prep_first_weights({"c0": {"weight": w0, "bias": b0}}, spec,
+    fl = taps.prep_first_weights({"c0": {"weight": w0, "bias": b0}}, spec,
                                   (rule, {"stabilizer": 1e-7}), (H, W))
     a1 = rng.standard_normal((b, H, W, C))
     a1[0, :2, :4] = 0.0                   # relu ties and an all-tied window
@@ -707,7 +708,6 @@ def test_service_merged_on_card_matches_default_path(cuda, monkeypatch, layer):
     from drsa_audio_tpu_torch.serving import ExplainerService
     from drsa_audio_tpu_torch.utils.constants import LRP_NAME_MAP_GTZAN
     from drsa_audio_tpu_torch.xai.drsa.optimizer import random_orthogonal
-    monkeypatch.delenv("DRSA_CHAIN_MERGED", raising=False)
     specs = vgg.build_layer_specs(vgg.gtzan_3s_config())
     params = vgg.init_params(specs, 0, device="cuda")
     svc = ExplainerService(specs, params, LRP_NAME_MAP_GTZAN,
@@ -821,12 +821,12 @@ def test_gamma_nonneg_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
           torch.as_tensor(rng.integers(0, W, co), device=cuda))
     sign = 1.0 - 2.0 * (o % 2).double()
     bias = (-c[at] + sign * margin * S[at]).float()
-    taps = fused_gamma.build_pair_taps(w, bias, gamma)
-    assert taps.inv == inv
-    b1, b0, b2 = (v.double() for v in taps.biases)
+    cv = taps.build_gamma_conv(w, bias, gamma, stab)
+    assert cv.inv == inv
+    b1, b0, b2 = (v.double() for v in cv.biases)
     z_true = c[at] + b0
     assert ((z_true * sign) > 0.5 * margin * S[at]).all()     # planted, after the f32 bias
-    M = fused_gamma._prep(x, taps, stab, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    M = fused_gamma._prep(x, cv, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     torch.cuda.synchronize()
     m1, m3 = (M[at[0], at[2], at[3], 2 * o + s].double() for s in (0, 1))
     pos, neg = z_true > 0, z_true < 0
@@ -851,21 +851,21 @@ def test_gamma_nonneg_sign_decisions_at_planted_near_ties(cuda, ci, co, margin):
 def test_gamma_nonneg_kernel_takes_the_layouts_width(cuda, prep_chunk, apply_cols, takes,
                                                      monkeypatch):
     """gamma_nonneg's launches multiply in the widths of the layer's cached
-    layouts (PairTaps.prep_cols, apply_cols) and refuse, before any launch,
-    a width they have no instance for."""
+    layouts (GammaConv.prep_cols, apply_pair_cols) and refuse, before any
+    launch, a width they have no instance for."""
     import dataclasses
 
     from drsa_audio_tpu_torch.xai.lrp import fused_gamma
     x, R, w, bias = _gamma_inputs(np.random.default_rng(6), 2, 4, 64, 64, 16, 16, cuda)
-    own = fused_gamma.build_pair_taps(w, bias, 0.3)
+    own = taps.build_gamma_conv(w, bias, 0.3, 1e-7)
     pair = (torch.stack([w + 0.3 * w.clamp(min=0), w + 0.3 * w.clamp(max=0)], dim=1)
             .reshape(128, 64, 3, 3))
-    taps = dataclasses.replace(
-        own, w_prep_wg=chain.wgmma_taps(pair.permute(2, 3, 1, 0).reshape(9, 64, 128), prep_chunk),
-        w_apply_wg=chain.wgmma_taps(pair.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 128, 64),
-                                    apply_cols))
-    assert (taps.prep_cols, taps.apply_cols) == (prep_chunk, apply_cols)
-    monkeypatch.setattr(fused_gamma, "pair_taps", lambda *_: taps)
+    cv = dataclasses.replace(
+        own, w_prep_wg=taps.wgmma_taps(pair.permute(2, 3, 1, 0).reshape(9, 64, 128), prep_chunk))
+    cv.w_apply_pair_wg = taps.wgmma_taps(pair.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 128, 64),
+                                         apply_cols)
+    assert (cv.prep_cols, cv.apply_pair_cols) == (prep_chunk, apply_cols)
+    monkeypatch.setattr(fused_gamma, "gamma_conv", lambda *_: cv)
     n0 = fused_gamma.LAUNCHES["gamma_nonneg"]
     if not takes:
         with pytest.raises(ValueError, match="channel counts or shapes"):

@@ -28,9 +28,7 @@ DIMS = {"toy": {7: 16, 10: 16, 13: 16}, "gtzan3s": {7: 64, 10: 64, 13: 128},
 
 @pytest.fixture
 def switch(monkeypatch):
-    """Set both packages' merged-tail flag; the environment stays out."""
-    monkeypatch.delenv("DRSA_CHAIN_MERGED", raising=False)
-
+    """Set both packages' merged-tail flag."""
     def set_(on: bool):
         monkeypatch.setattr(pc, "CHAIN_MERGED", on)
         monkeypatch.setattr(tchain, "CHAIN_MERGED", on)
@@ -104,17 +102,6 @@ def test_merged_path_matches_default_path(name, rng, switch, monkeypatch):
     assert calls == ["merged_tail"]
     assert got.shape == (1, 5) + hw and torch.isfinite(got).all()
     assert_close_lrp(got.numpy(), want.numpy())
-
-
-def test_switch_reads_environment_at_call_time(monkeypatch):
-    monkeypatch.setattr(tchain, "CHAIN_MERGED", False)
-    monkeypatch.setenv("DRSA_CHAIN_MERGED", "1")
-    assert tchain._chain_merged()
-    monkeypatch.setattr(tchain, "CHAIN_MERGED", True)
-    monkeypatch.setenv("DRSA_CHAIN_MERGED", "0")
-    assert not tchain._chain_merged()
-    monkeypatch.delenv("DRSA_CHAIN_MERGED")
-    assert tchain._chain_merged()
 
 
 def _jax_merges(plan) -> bool:

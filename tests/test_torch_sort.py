@@ -1,25 +1,25 @@
-"""The service's device sort (``serving.sort_concepts``) against the numpy
-``sort_subspaces`` it replaces on the service: the order wherever the
-relevances differ, exact ties broken larger index first, the maps permuted
-bit for bit, each relevance its map's sum; and ``unsort_concepts`` undoing
-it. ``check_device_sort`` is shared with the card's test
-(test_torch_gpu.py)."""
+"""The port's subspace sort (``xai.explain.sort_concepts``, on the device
+where the maps live) against the JAX package's numpy ``sort_subspaces``:
+the order wherever the relevances differ, exact ties broken larger index
+first, the maps permuted bit for bit, each relevance its map's sum; and
+``unsort_concepts`` undoing it. ``check_device_sort`` is shared with the
+card's test (test_torch_gpu.py), which passes the reference's order
+computed without jax."""
 
 import numpy as np
 import pytest
 import torch
 
-from drsa_audio_tpu_torch.serving import sort_concepts, unsort_concepts
-from drsa_audio_tpu_torch.xai.explain import sort_subspaces
+from drsa_audio_tpu_torch.xai.explain import sort_concepts, unsort_concepts
 
 # float32 round-off of a sum, as a share of the absolute sum it runs over
 SUM_RTOL = 1e-6
 
 
-def check_device_sort(heat: torch.Tensor, got) -> None:
+def check_device_sort(heat: torch.Tensor, got, want: np.ndarray) -> None:
     """``got`` is ``sort_concepts(heat)`` of the tensor ``heat``
-    [b, 1 + K, h, w]; holds it to the numpy path on ``heat``'s last K maps
-    and to ``unsort_concepts``."""
+    [b, 1 + K, h, w]; holds it to ``want``, the reference's order [b, K]
+    of ``heat``'s last K maps, and to ``unsort_concepts``."""
     maps, rel, order = got
     assert {t.device for t in got} == {heat.device}
     assert (maps.dtype, rel.dtype, order.dtype) == (torch.float32, torch.float32, torch.int64)
@@ -38,7 +38,6 @@ def check_device_sort(heat: torch.Tensor, got) -> None:
     assert (np.abs(rel - exact) <= SUM_RTOL * scale).all()
     sub_rel = rel[:, 1:]
     assert (np.diff(sub_rel, axis=1) <= 0).all()                    # they do not rise
-    _, _, want = sort_subspaces(h[:, 1:])
     for i in range(b):
         for j in range(K):
             tied = (sub_rel[i] == sub_rel[i, j]).sum() > 1
@@ -63,8 +62,10 @@ def _maps_with_ties(b: int, K: int, seed: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("K", [2, 3, 4])
 def test_device_sort_matches_numpy(K):
+    from drsa_audio_tpu.xai.explain import sort_subspaces
     heat = _maps_with_ties(6, K, seed=K)
-    check_device_sort(heat, sort_concepts(heat))
+    _, _, want = sort_subspaces(heat[:, 1:].numpy())
+    check_device_sort(heat, sort_concepts(heat), want)
 
 
 @pytest.fixture(scope="module")

@@ -152,7 +152,7 @@ def test_tf32_rounding():
 
 def unlay(wg: torch.Tensor, kr: int, n: int):
     """The (hi, lo) taps [9, kr, n] a pre-split layout [chunks, slices, 2, 9,
-    2, chunk, 4] (chain.wgmma_taps) holds, and the largest entry outside
+    2, chunk, 4] (taps.wgmma_taps) holds, and the largest entry outside
     them."""
     cb, nsl, _, _, _, chunk, _ = wg.shape
     full = wg.permute(2, 3, 1, 4, 6, 0, 5).reshape(2, 9, nsl * 8, cb * chunk)
@@ -166,16 +166,16 @@ def _gamma_nonneg_as_kernel(x, R, w, b, K, gamma, stab):
     CPU: the prep's GEMM over the interleaved columns of the pre-split
     w_prep_wg, M = (m1, m3) interleaved channels last, and the apply's GEMM
     over the 2*Co channels R[o] * M[2o + s] against the pre-split
-    w_apply_wg, tap (dy, dx) reading the pixel (h + dy - 1, w + dx - 1);
+    w_apply_pair_wg, tap (dy, dx) reading the pixel (h + dy - 1, w + dx - 1);
     every product in 3xTF32 from the layouts' hi and lo (the sums channels
     last, x, R and the result NCHW as the kernels read and write them)."""
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    from drsa_audio_tpu_torch.xai.lrp import taps
     n, ci, H, W = x.shape
     co = w.shape[0]
-    taps = fused_gamma.build_pair_taps(w, b, gamma)
-    b1, b0, b2 = taps.biases
-    fh, fl, _ = unlay(taps.w_prep_wg, ci, 2 * co)                      # [9, ci, 2co]
-    ah, al, _ = unlay(taps.w_apply_wg, 2 * co, ci)                     # [9, 2co, ci]
+    cv = taps.build_gamma_conv(w, b, gamma, stab)
+    b1, b0, b2 = cv.biases
+    fh, fl, _ = unlay(cv.w_prep_wg, ci, 2 * co)                        # [9, ci, 2co]
+    ah, al, _ = unlay(cv.w_apply_pair_wg, 2 * co, ci)                  # [9, 2co, ci]
 
     def gemm3(a, bh, bl):
         """sum over the taps of a(shifted) @ B in 3xTF32, a padded by one."""
@@ -188,9 +188,9 @@ def _gamma_nonneg_as_kernel(x, R, w, b, K, gamma, stab):
     xp = torch.nn.functional.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
     z = gemm3(xp, fh, fl)
     z1, z3 = z[..., 0::2] + b1, z[..., 1::2]
-    zt = (z1 + z3 - b1) * taps.inv + b0
-    m1 = torch.where(zt > 0, 1.0 / chain.stabilize(z1 + b2, stab), 0.0)
-    m3 = torch.where(zt < 0, 1.0 / chain.stabilize(z3, stab), 0.0)
+    zt = (z1 + z3 - b1) * cv.inv + b0
+    m1 = torch.where(zt > 0, 1.0 / chain.stabilize(z1 + b2, cv.stab), 0.0)
+    m3 = torch.where(zt < 0, 1.0 / chain.stabilize(z3, cv.stab), 0.0)
     M = torch.stack([m1, m3], dim=-1).reshape(n, H, W, 2 * co)
     Rh = R.view(K, n, co, H, W).permute(1, 0, 3, 4, 2)
     A = torch.nn.functional.pad(Rh.repeat_interleave(2, dim=-1) * M[:, None],
@@ -225,7 +225,6 @@ def test_merged_tail_in_3xtf32_matches_f32(model, layer, d, monkeypatch):
     them, against pure f32 (the first-layer tail stays f32 on the FMA
     units in the kernel, so it is not emulated); no prep sign decision
     flipped."""
-    monkeypatch.delenv("DRSA_CHAIN_MERGED", raising=False)
     monkeypatch.setattr(chain, "CHAIN_MERGED", True)
     _, _, specs, params, nm, _, _, hw, _ = both_models(model)
     sp = insert_projection(specs, layer, t(signed_permutation(5, d)), 4, input_size=hw)

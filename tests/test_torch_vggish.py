@@ -28,7 +28,7 @@ from drsa_audio_tpu_torch.serving import ExplainerService
 from drsa_audio_tpu_torch.utils import constants as tconst
 from drsa_audio_tpu_torch.utils.convert import from_jax_params
 from drsa_audio_tpu_torch.xai import explain as texp
-from drsa_audio_tpu_torch.xai.lrp import chain, engine, fused_gamma
+from drsa_audio_tpu_torch.xai.lrp import chain, engine, fused_gamma, taps
 from test_torch_util import assert_close_lrp, jit_init_params, signed_permutation, t, to_np
 
 BENCH = Path(__file__).resolve().parents[1] / "portbench"
@@ -165,21 +165,21 @@ def test_first_block_predicates():
 @pytest.mark.parametrize("ci,co", VGGISH_CHANNELS + [(192, 64), (64, 256)])
 def test_wide_apply_taps_are_laid_out_in_chunks_of_128(ci, co):
     """For a conv over 128 channels the apply's taps come in chunks of 128
-    columns (chain.apply_chunk), one a grid column of the kernel; each chunk
+    columns (taps.apply_chunk), one a grid column of the kernel; each chunk
     holds hi and lo of its columns, zeros past Ci; the prep's in chunks of
     32 of the 2*Co columns, over ceil(Ci / 8) slices."""
     rng = np.random.default_rng(ci + co)
     w = t(rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
     cv = chain.prep_inner_weights({"c": {"weight": w, "bias": t(rng.standard_normal(co))}},
                                   tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.15})
-    assert cv.apply_cols == (128 if max(ci, co) > 128 else chain.wg_cols(ci))
+    assert cv.apply_cols == (128 if max(ci, co) > 128 else taps.wg_cols(ci))
     assert cv.w_apply_wg.shape == (-(-ci // cv.apply_cols), co // 8, 2, 9, 2, cv.apply_cols, 4)
     assert cv.w_prep_wg.shape == (2 * co // 32, ci // 8, 2, 9, 2, 32, 4)
-    taps = cv.wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci)
+    w_apply = cv.wz1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, co, ci)
     full = cv.w_apply_wg.permute(2, 3, 1, 4, 6, 0, 5).reshape(2, 9, co, -1)
-    hi = chain.tf32(taps)
+    hi = taps.tf32(w_apply)
     assert torch.equal(full[0, :, :, :ci], hi)
-    assert torch.equal(full[1, :, :, :ci], chain.tf32(taps - hi))
+    assert torch.equal(full[1, :, :, :ci], taps.tf32(w_apply - hi))
     if full.shape[-1] > ci:
         assert full[:, :, :, ci:].abs().max().item() == 0.0
 

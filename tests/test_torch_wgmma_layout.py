@@ -1,9 +1,9 @@
 """The pre-split K-major tap layouts of the wgmma kernels
-(csrc/conv3x3_wgmma.cuh; xai/lrp/chain.py wgmma_taps, GammaConv.w_prep_wg and
-w_apply_wg; xai/lrp/fused_gamma.py PairTaps) on the CPU: every (part, slice,
-tap, channel, column) entry by index against the split of the taps they
-re-lay, the tile widths and column chunks at the repo's channel counts (100
--> 104 included), gamma_nonneg's per-layer cache of its taps, and the
+(csrc/conv3x3_wgmma.cuh; xai/lrp/taps.py wgmma_taps, GammaConv.w_prep_wg,
+w_apply_wg and w_apply_pair_wg) on the CPU: every (part, slice, tap,
+channel, column) entry by index against the split of the taps they re-lay,
+the tile widths and column chunks at the repo's channel counts (100 -> 104
+included), the per-layer cache of the record (taps.gamma_conv), and the
 chain's 3xTF32 emulation (test_torch_tf32x3.py) fed from the pre-split
 tiles against the same emulation splitting the weights itself, on the
 calls that the bridged 3s model and the small 6s-topology model record: the
@@ -15,12 +15,12 @@ import pytest
 import torch
 
 from drsa_audio_tpu_torch.models import vgg as tvgg
-from drsa_audio_tpu_torch.xai.lrp import chain
+from drsa_audio_tpu_torch.xai.lrp import chain, taps
 from test_torch_tf32x3 import _chain_calls, split, tf32, unlay, x3
 from test_torch_util import t
 
 
-def _conv(ci: int, co: int, seed: int) -> chain.GammaConv:
+def _conv(ci: int, co: int, seed: int) -> taps.GammaConv:
     rng = np.random.default_rng(seed)
     w = t(rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2 / (9 * ci)))
     return chain.prep_inner_weights({"c": {"weight": w, "bias": t(rng.standard_normal(co))}},
@@ -53,16 +53,16 @@ def test_wgmma_tap_layouts_rebuild_the_split_taps(ci, co):
     chunks the wrappers pass to the kernels (GammaConv.prep_cols,
     apply_cols; csrc/chain_block.cu takes them from there)."""
     cv = _conv(ci, co, ci * 1000 + co)
-    chunk = chain.prep_chunk(2 * co)
+    chunk = taps.prep_chunk(2 * co)
     assert chunk == (16 if 2 * co <= 16 else 32)
     assert cv.w_prep_wg.shape == (-(-2 * co // chunk), -(-ci // 8), 2, 9, 2, chunk, 4)
-    width = chain.wg_cols(ci)
+    width = taps.wg_cols(ci)
     assert width == next(c for c in (8, 16, 32, 64, 104, 128) if ci <= c)
     assert cv.w_apply_wg.shape == (1, -(-co // 8), 2, 9, 2, width, 4)
     assert (cv.prep_cols, cv.apply_cols) == (chunk, width)
-    for wgt, taps in ((cv.w_prep_wg, _pair_taps(cv)), (cv.w_apply_wg, _apply_taps(cv))):
-        hi, lo, rest = unlay(wgt, taps.shape[1], taps.shape[2])
-        want_hi, want_lo = split(taps)
+    for wgt, want in ((cv.w_prep_wg, _pair_taps(cv)), (cv.w_apply_wg, _apply_taps(cv))):
+        hi, lo, rest = unlay(wgt, want.shape[1], want.shape[2])
+        want_hi, want_lo = split(want)
         assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
         assert rest == 0.0
         assert torch.equal(hi, tf32(hi)) and torch.equal(lo, tf32(lo))
@@ -74,11 +74,11 @@ def test_wgmma_tap_layouts_by_index(ci, co):
     p, tap, channel half kc and column n of chunk cb hold reduction channel
     8s + 4kc + i and output column cb * chunk + n."""
     cv = _conv(ci, co, 7)
-    for wgt, taps in ((cv.w_prep_wg, _pair_taps(cv)), (cv.w_apply_wg, _apply_taps(cv))):
-        parts = [p.numpy() for p in split(taps)]
+    for wgt, lay in ((cv.w_prep_wg, _pair_taps(cv)), (cv.w_apply_wg, _apply_taps(cv))):
+        parts = [p.numpy() for p in split(lay)]
         wgt = wgt.numpy()
         cbs, nsl, _, _, _, chunk, _ = wgt.shape
-        kr, n = taps.shape[1:]
+        kr, n = lay.shape[1:]
         for cb in range(cbs):
             for s in range(nsl):
                 for p in range(2):
@@ -176,28 +176,27 @@ GAMMA_NONNEG = [(32, 32), (32, 64), (64, 64), (64, 100), (100, 100), (100, 128),
 
 @pytest.mark.parametrize("ci,co", GAMMA_NONNEG)
 def test_gamma_nonneg_pair_taps_rebuild_the_pair(ci, co):
-    """fused_gamma's PairTaps: w_prep_wg the interleaved forward pair (the
-    chain's GammaConv.w_prep_wg for the same weights, bit for bit) and
-    w_apply_wg the stacked flipped transpose (test_torch_tf32x3 emulates
-    both launches from them), each hi = tf32(w) and lo = tf32(w - hi) at
-    every index, zeros past the counts, in the widths the wrapper passes
-    (prep chunk 16 or 32, apply tile wg_cols(Ci): 100 -> 104); biases (b1,
-    b0, b2) and inv = f32(1/(2+g))."""
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
+    """gamma_nonneg's taps, the layer's cached GammaConv: w_prep_wg the
+    interleaved forward pair (a fresh build's for the same weights, bit for
+    bit) and w_apply_pair_wg the stacked flipped transpose (test_torch_tf32x3
+    emulates both launches from them), each hi = tf32(w) and lo = tf32(w -
+    hi) at every index, zeros past the counts, in the widths the wrapper
+    passes (prep chunk 16 or 32, apply tile wg_cols(Ci): 100 -> 104);
+    biases (b1, b0, b2) and inv = f32(1/(2+g))."""
     w, b, (wz1, wz3) = _pair(ci, co, ci * 1000 + co)
-    taps = fused_gamma.build_pair_taps(w, b, 0.3)
-    cv = chain.prep_inner_weights({"c": {"weight": w, "bias": b}},
-                                  tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
-    assert torch.equal(taps.w_prep_wg, cv.w_prep_wg) and torch.equal(taps.biases, cv.biases)
-    assert taps.inv == cv.inv == float(np.float32(1 / 2.3))
-    chunk, width = chain.prep_chunk(2 * co), chain.wg_cols(ci)
-    assert (taps.prep_cols, taps.apply_cols) == (chunk, width)
+    cv = taps.gamma_conv(w, b, 0.3, 1e-6)
+    fresh = chain.prep_inner_weights({"c": {"weight": w, "bias": b}},
+                                     tvgg.LayerSpec("conv", "c", {}), {"gamma": 0.3})
+    assert torch.equal(cv.w_prep_wg, fresh.w_prep_wg) and torch.equal(cv.biases, fresh.biases)
+    assert cv.inv == fresh.inv == float(np.float32(1 / 2.3))
+    chunk, width = taps.prep_chunk(2 * co), taps.wg_cols(ci)
+    assert (cv.prep_cols, cv.apply_pair_cols) == (chunk, width)
     assert width == next(c for c in (8, 16, 32, 64, 104, 128) if ci <= c)
-    assert taps.w_prep_wg.shape == (-(-2 * co // chunk), -(-ci // 8), 2, 9, 2, chunk, 4)
-    assert taps.w_apply_wg.shape == (1, 2 * co // 8, 2, 9, 2, width, 4)
+    assert cv.w_prep_wg.shape == (-(-2 * co // chunk), -(-ci // 8), 2, 9, 2, chunk, 4)
+    assert cv.w_apply_pair_wg.shape == (1, 2 * co // 8, 2, 9, 2, width, 4)
     fwd = (torch.stack([wz1, wz3], dim=1).reshape(2 * co, ci, 3, 3)
            .permute(2, 3, 1, 0).reshape(9, ci, 2 * co))
-    for wgt, want in ((taps.w_prep_wg, fwd), (taps.w_apply_wg, _flipped_pair(wz1, wz3))):
+    for wgt, want in ((cv.w_prep_wg, fwd), (cv.w_apply_pair_wg, _flipped_pair(wz1, wz3))):
         hi, lo, rest = unlay(wgt, want.shape[1], want.shape[2])
         want_hi, want_lo = split(want)
         assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
@@ -212,12 +211,11 @@ def test_gamma_nonneg_apply_taps_by_index(ci, co):
     channel r = 8s + 4kc + i, i.e. the pair member r % 2 of output channel
     r // 2, at input channel n, flipped: wz[r % 2][r // 2, n, 2 - dy, 2 -
     dx]; zeros past Ci."""
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
     w, b, pair = _pair(ci, co, 11)
-    taps = fused_gamma.build_pair_taps(w, b, 0.3).w_apply_wg[0].numpy()
+    lay = taps.build_gamma_conv(w, b, 0.3, 1e-6).w_apply_pair_wg[0].numpy()
     parts = [[a.numpy() for a in split(p)] for p in pair]           # [member][part]
-    width = taps.shape[-2]
-    for s in range(taps.shape[0]):
+    width = lay.shape[-2]
+    for s in range(lay.shape[0]):
         for p in range(2):
             for tap in range(9):
                 dy, dx = divmod(tap, 3)
@@ -226,26 +224,25 @@ def test_gamma_nonneg_apply_taps_by_index(ci, co):
                         r = 8 * s + 4 * kc + i
                         want = np.zeros(width, np.float32)
                         want[:ci] = parts[r % 2][p][r // 2, :, 2 - dy, 2 - dx]
-                        np.testing.assert_array_equal(taps[s, p, tap, kc, :, i], want)
+                        np.testing.assert_array_equal(lay[s, p, tap, kc, :, i], want)
 
 
 @pytest.mark.parametrize("change", ["none", "in_place", "new_tensor", "bias", "gamma"])
 def test_gamma_nonneg_pair_taps_cached_per_layer(change):
-    """pair_taps builds a layer's taps once and serves them while the weight
-    and bias are the same tensors, unchanged: a weight or bias updated in
-    place, another weight tensor or another gamma is built anew (never
-    served stale), and the rebuilt taps are those of the new weights. An
-    entry goes with its weight."""
+    """gamma_conv builds a layer's record once and serves it while the
+    weight and bias are the same tensors, unchanged: a weight or bias
+    updated in place, another weight tensor or another gamma is built anew
+    (never served stale), and the rebuilt record is that of the new
+    weights. An entry goes with its weight."""
     import gc
 
-    from drsa_audio_tpu_torch.xai.lrp import fused_gamma
     w, b, _ = _pair(16, 32, 5)
     other, _, _ = _pair(8, 16, 6)                 # another layer, built once too
-    n0 = fused_gamma.BUILDS["pair_taps"]
-    first = fused_gamma.pair_taps(w, b, 0.3)
-    assert fused_gamma.pair_taps(other, None, 0.3) is fused_gamma.pair_taps(other, None, 0.3)
-    assert fused_gamma.pair_taps(w, b, 0.3) is first
-    assert fused_gamma.BUILDS["pair_taps"] == n0 + 2
+    n0 = taps.BUILDS["gamma_conv"]
+    first = taps.gamma_conv(w, b, 0.3, 1e-6)
+    assert taps.gamma_conv(other, None, 0.3, 1e-6) is taps.gamma_conv(other, None, 0.3, 1e-6)
+    assert taps.gamma_conv(w, b, 0.3, 1e-6) is first
+    assert taps.BUILDS["gamma_conv"] == n0 + 2
     gamma = 0.3
     if change == "in_place":
         with torch.no_grad():
@@ -256,14 +253,32 @@ def test_gamma_nonneg_pair_taps_cached_per_layer(change):
         b += 1.0
     elif change == "gamma":
         gamma = 0.25
-    again = fused_gamma.pair_taps(w, b, gamma)
-    assert fused_gamma.BUILDS["pair_taps"] == n0 + 2 + (change != "none")
+    again = taps.gamma_conv(w, b, gamma, 1e-6)
+    assert taps.BUILDS["gamma_conv"] == n0 + 2 + (change != "none")
     assert (again is first) == (change == "none")
-    fresh = fused_gamma.build_pair_taps(w, b, gamma)
+    fresh = taps.build_gamma_conv(w, b, gamma, 1e-6)
     for a, f in ((again.w_prep_wg, fresh.w_prep_wg), (again.w_apply_wg, fresh.w_apply_wg),
-                 (again.biases, fresh.biases)):
+                 (again.w_apply_pair_wg, fresh.w_apply_pair_wg), (again.biases, fresh.biases)):
         assert torch.equal(a, f)
-    entries = len(fused_gamma._TAPS)
+    entries = len(taps._CACHE)
     del other
     gc.collect()
-    assert len(fused_gamma._TAPS) == entries - 1
+    assert len(taps._CACHE) == entries - 1
+
+
+def test_gamma_conv_of_inference_tensors_is_built_anew():
+    """A weight and bias made under torch.inference_mode() keep no version
+    counter: the cached accessor builds their record on every call without
+    raising, never caches it, and returns what a fresh build returns."""
+    w, b, _ = _pair(16, 32, 9)
+    with torch.inference_mode():
+        w, b = w.clone(), b.clone()
+    assert w.is_inference() and b.is_inference()
+    entries, n0 = len(taps._CACHE), taps.BUILDS["gamma_conv"]
+    got = [taps.gamma_conv(w, b, 0.3, 1e-6) for _ in range(2)]
+    assert taps.BUILDS["gamma_conv"] == n0 + 2 and len(taps._CACHE) == entries
+    fresh = taps.build_gamma_conv(w, b, 0.3, 1e-6)
+    for cv in got:
+        for name in ("wz1", "wz3", "biases", "w_prep_wg", "w_apply_wg", "w_apply_pair_wg"):
+            assert torch.equal(getattr(cv, name), getattr(fresh, name)), name
+        assert (cv.inv, cv.stab) == (fresh.inv, fresh.stab)
